@@ -9,24 +9,43 @@ non-zero:
   1. build   — compile the CUDA kernels from ``csrc/`` (nvcc, sm_90a);
   2. kernels — each kernel against its plain PyTorch version on the card,
      byte for byte: small random inputs (odd and single-column windows,
-     an all-retired window, a grid taller than 65,535 row blocks), then
-     the inputs the main path gives it, captured from short runs at the
-     main-path shapes (N=10,000 x W=16,384 x K=8 sustained traffic;
-     N=50,000 x W=140 x K=17 paper-scale churn), with the time of the
-     bare kernel launch, of the wrapper around it, of the plain version,
-     and the bound; fused_sweep also with the time of its plane pass
-     alone (the deliver_sweep kernel on its inputs, no forward scatter);
+     an all-retired window, a grid taller than 65,535 row blocks), the
+     latency histogram on latencies that reach all 32 buckets and with
+     more than 65,535 row chunks, then the inputs the main path gives
+     each kernel, captured from short runs at the main-path shapes
+     (N=10,000 x W=16,384 x K=8 sustained traffic; N=50,000 x W=140 x
+     K=17 paper-scale churn; N=65,536 x W=1,024 serving), with the time
+     of the bare kernel launch, of the wrapper around it, of the plain
+     version, and the bound; fused_sweep also with the time of its plane
+     pass alone (the deliver_sweep kernel on its inputs, no forward
+     scatter);
   3. sustained — the sustained-traffic configuration (N=10,000, k-regular
      K=8, Poisson 1,000 broadcasts a round, 1,000,000 broadcasts, window
      16,384, seg_len 8) through ``repro_torch.api.run``: full delivery,
-     the window held, one fused_sweep launch a round and one
-     retire_reduce launch a retirement sweep;
+     the window held, one fused_sweep launch a round, one retire_reduce
+     launch a retirement sweep and one latency_hist launch a sweep that
+     retired app columns;
   4. gated — the paper-scale Fig. 7 churn run (N=50,000, ring K=17, 12
      broadcasts, 128 link additions and removals in 16 rounds, delay 3,
      snapshot at the last churn round, oracle on): full delivery, a
      clean oracle, deliver_sweep and frontier_sweep launched every round;
   5. parity — a sustained N=2,048 windowed run and an N=1,024 churn run
-     on the card and on the CPU (plain versions): byte-identical.
+     on the card and on the CPU (plain versions): byte-identical;
+  6. serve — the live serving front door at the headline configuration
+     of BENCH_serve.json (N=65,536, k-regular K=4, bursty arrivals at 64
+     a round over a base of 16, 200,000 submissions, defer admission,
+     window 1,024, seg_len 16) on the windowed engine, with histograms,
+     spans, 1-in-1,024 provenance, the causality audit in fail mode, and
+     the metrics, trace and ops files: every submission admitted and
+     delivered, the histogram total equal to the deliveries, no audit
+     violation, one fused_sweep launch a round, one retire_reduce launch
+     a retirement sweep, one latency_hist launch a sweep that retired
+     app columns, and the three files loaded back;
+  7. live parity — two N=1,024 live runs (bursty/defer, and admit with
+     window overflows) on the card and on the CPU, with the full
+     delivered matrix, the oracle, provenance of every message and the
+     audit in fail mode: report, series, histogram, provenance and ops
+     records byte-identical.
 
 Then the kernels line, the card's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``.  Needs one CUDA card; exits
@@ -50,6 +69,7 @@ HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
 
 SUSTAINED_MESSAGES = 1_000_000
+SERVE_MESSAGES = 200_000
 
 
 def emit(phase: str, **kw) -> None:
@@ -86,12 +106,22 @@ def main() -> int:
     entries = check_main_path(torch)
 
     # -- 3. sustained main path --------------------------------------- #
-    launches = {}
+    # each main-path phase returns the launches of the kernels it drives
+    # and those of retire_scan, which no engine calls (summed, 0)
+    launches, scans = {}, []
     launches.update(sustained_phase(torch))
+    scans.append(launches.pop("retire_scan"))
     # -- 4. gated main path ------------------------------------------- #
     launches.update(gated_phase(torch))
+    scans.append(launches.pop("retire_scan"))
     # -- 5. whole-engine parity, card vs CPU --------------------------- #
     parity_phase(np)
+    # -- 6. the live serving path -------------------------------------- #
+    launches.update(serve_phase(torch, np))
+    scans.append(launches.pop("retire_scan"))
+    # -- 7. live parity, card vs CPU ----------------------------------- #
+    live_parity_phase(np)
+    launches["retire_scan"] = sum(scans)
 
     for e in entries:
         e["launches"] = launches[e["name"]]
@@ -116,7 +146,11 @@ INF = 2 ** 30
 def _random_inputs(torch, np, rng, n, w, k, dev):
     def t(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+    ncols = max(1, w // 2)
     return dict(
+        base=t(np.where(rng.random(ncols) < 0.8, rng.integers(0, 10, ncols),
+                        -1), torch.int32),
+        cols=torch.from_numpy(rng.permutation(w)[:ncols].astype(np.int64)),
         t=int(rng.integers(1, 20)),
         arr=t(np.where(rng.random((n, w)) < 0.4, rng.integers(0, 25, (n, w)),
                        INF), torch.int32),
@@ -152,6 +186,23 @@ def _ops():
         return make
 
     counts = zeros(("n", torch.int32), ("n", torch.int32))
+
+    def hist_out(inp):
+        # the output, and the card's copy of the host's column indices
+        dev = inp["base"].device
+        return [torch.zeros((inp["base"].shape[0], ref.NB),
+                            dtype=torch.int32, device=dev),
+                inp["cols"].to(dev)]
+
+    def launch_hist(base, delivered, cols, hist, cols_dev):
+        ops.launch_latency_hist(base, delivered, cols_dev, hist)
+
+    def scan_out(inp):
+        w = inp["delivered"].shape[1]
+        return [torch.zeros(w, dtype=torch.int32,
+                            device=inp["delivered"].device)
+                for _ in range(3)]
+
     return {
         "fused_sweep": (ops.fused_sweep, ref.fused_sweep_ref,
                         ("arr", "delivered", "crashed", "adj", "delay",
@@ -170,6 +221,12 @@ def _ops():
                            "rounds"), (), ops.launch_retire_reduce,
                           zeros(*[("w", torch.int32)] * 4,
                                 ("w", torch.int64))),
+        "retire_scan": (ops.retire_scan, ref.retire_scan_ref,
+                        ("delivered", "crashed", "min_gate"), (),
+                        ops.launch_retire_scan, scan_out),
+        "latency_hist": (ops.latency_hist, ref.latency_hist_ref,
+                         ("base", "delivered", "cols"), (),
+                         launch_hist, hist_out),
     }
 
 
@@ -180,6 +237,10 @@ def _call(torch, fn, names, inputs, inplace):
 
 
 def _max_err(torch, got, want) -> int:
+    """Largest |difference| over the outputs (a tensor or a tuple)."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want), (len(got), len(want))
     err = 0
     for g, w in zip(got, want):
         assert g.shape == w.shape, (g.shape, w.shape)
@@ -229,7 +290,7 @@ def _bound(torch, name, inp, plain_out):
     cell the output depends on is read once, each changed cell written
     once, both counted in whole 32-byte sectors; the (N, K) tables only
     for rows that use them."""
-    n, w = inp["arr"].shape
+    n, w = inp["delivered"].shape
     cells = n * w
     k = inp["adj"].shape[1] if "adj" in inp else 0
     d, t = inp["delivered"], inp.get("t")
@@ -256,6 +317,18 @@ def _bound(torch, name, inp, plain_out):
         nbytes = (4 * cells + w + 14 * k * rows_active + 8
                   + 64 * _sectors(torch, a_changed))
         ops = 3 * cells + 5 * k * int(active.sum())
+    elif name == "retire_scan":
+        # every cell of delivered counts in some output
+        nbytes = 4 * cells + 5 * n + 12 * w
+        ops = 5 * cells
+    elif name == "latency_hist":
+        # the selected columns' cells, in whole sectors, then the
+        # (C,) bases and indices and the (C, 32) counters
+        c = inp["base"].shape[0]
+        sel = torch.zeros((n, w), dtype=torch.bool, device=d.device)
+        sel[:, inp["cols"].to(d.device)] = True
+        nbytes = 32 * _sectors(torch, sel) + 12 * c + 128 * c
+        ops = 8 * n * c
     else:
         # every cell of both planes counts in some output
         nbytes = 8 * cells + 5 * n + 24 * w
@@ -310,7 +383,6 @@ def check_small(torch, np, dev):
         for name, (kernel, plain, names, inplace, *_) in calls.items():
             got = _call(torch, kernel, names, inp, inplace)
             want = plain(*[inp[k] for k in names])
-            got = got if isinstance(got, tuple) else (got,)
             err = _max_err(torch, got, want)
             if err:
                 raise AssertionError(f"{name} differs from its plain "
@@ -319,6 +391,75 @@ def check_small(torch, np, dev):
     torch.cuda.synchronize()
     emit("kernels_small", cases=len(cases), kernels=sorted(calls),
          max_abs_err=0)
+    check_hist_buckets(torch, np, dev)
+
+
+def check_hist_buckets(torch, np, dev):
+    """latency_hist against its plain version on latencies that reach
+    all 32 buckets (each bucket's lower bound, its last value and a value
+    inside it; rows that never delivered, columns with no base), on the
+    whole plane and on a column subset, for single, odd and wider
+    column counts; then with more row chunks (75,000) than a grid has
+    rows, the wrapper's block target raised for one call so that a chunk
+    is 8 rows; and a column index outside the plane refused on the card
+    as on the CPU."""
+    from repro_torch.core.vecsim.kernels import ops, ref
+    rng = np.random.default_rng(20261)
+    lo = np.array([b if b < 16 else 1 << (b - 12) for b in range(ref.NB)],
+                  np.int64)
+    hi = np.append(lo[1:] - 1, 2 ** 29)
+
+    def inputs(n, w):
+        pick = rng.integers(0, ref.NB, (n, w))
+        where = rng.integers(0, 3, (n, w))
+        lat = np.where(where == 0, lo[pick], np.where(
+            where == 1, hi[pick], (lo[pick] + hi[pick]) // 2))
+        base = rng.integers(0, 50, w)
+        base[rng.random(w) < 0.2] = -1
+        d = np.where(base[None, :] >= 0, base[None, :] + lat, lat)
+        d[rng.random((n, w)) < 0.25] = -1
+        return (torch.from_numpy(base.astype(np.int32)).to(dev),
+                torch.from_numpy(d.astype(np.int32)).to(dev))
+
+    buckets = torch.zeros(ref.NB, dtype=torch.int64, device=dev)
+    for n, w in ((500, 1), (500, 5), (500, 37), (1000, 300)):
+        base, d = inputs(n, w)
+        want = ref.latency_hist_ref(base, d)
+        got = ops.latency_hist(base, d)
+        cols = torch.from_numpy(
+            rng.permutation(w)[: max(1, w // 3)].astype(np.int64))
+        sub = ops.latency_hist(base[cols.to(dev)], d, cols)
+        if not (torch.equal(got, want)
+                and torch.equal(sub, want[cols.to(dev)])):
+            raise AssertionError(f"latency_hist differs from its plain "
+                                 f"version on ({n}, {w})")
+        buckets += want.sum(dim=0)
+    if not bool((buckets > 0).all()):
+        raise AssertionError("the bucket check missed a bucket")
+    base, d = inputs(600_000, 3)
+    target = ops._HIST_TARGET_BLOCKS
+    ops._HIST_TARGET_BLOCKS = 75_000
+    try:
+        chunk_rows = ops._hist_rows_per_chunk(600_000, 3)
+        got = ops.latency_hist(base, d)
+    finally:
+        ops._HIST_TARGET_BLOCKS = target
+    assert chunk_rows == 8, chunk_rows
+    if not torch.equal(got, ref.latency_hist_ref(base, d)):
+        raise AssertionError("latency_hist differs from its plain version "
+                             "with 75,000 row chunks")
+    for bad in (-1, 3):
+        cols = torch.tensor([0, bad], dtype=torch.int64)
+        for plane in (d, d.cpu()):
+            try:
+                ops.latency_hist(base[:2].to(plane.device), plane, cols)
+            except IndexError:
+                continue
+            raise AssertionError(f"latency_hist took column {bad} of 3 "
+                                 f"on {plane.device}")
+    torch.cuda.synchronize()
+    emit("kernels_hist_buckets", cases=5, buckets_reached=ref.NB,
+         row_chunks=75_000, out_of_range_refused=True, max_abs_err=0)
 
 
 def check_main_path(torch):
@@ -342,13 +483,21 @@ def check_main_path(torch):
     finally:
         undo()
     store.update(store2)
+    # the serving shape, from the spike of a shorter serving run
+    store3, undo = _capture(torch, calls, {"latency_hist": 16})
+    try:
+        run(serve_spec(messages=20_000))
+    finally:
+        undo()
+    store.update(store3)
+    # retire_scan on retire_reduce's inputs (no engine calls it)
+    store["retire_scan"] = store["retire_reduce"]
 
     entries = []
     for name, (kernel, plain, names, inplace, launch, outs) in calls.items():
         inp = store[name]
         got = _call(torch, kernel, names, inp, inplace)
         want = plain(*[inp[k] for k in names])
-        got = got if isinstance(got, tuple) else (got,)
         err = _max_err(torch, got, want)
         if err:
             raise AssertionError(f"{name} differs from its plain version "
@@ -359,13 +508,15 @@ def check_main_path(torch):
         plain_ms = _time_ms(torch, plain, names, inp, (), 5)
         ms2 = _time_ms(torch, launch, names, inp, inplace, 20, outs)
         entry = dict(
-            name=name, route="cuda", source=f"{KSRC}/{name}.cu",
+            name=name, route="cuda", source=f"{KSRC}/{SOURCES[name]}",
             replaces=f"{TPU_KERNELS}:{TPU_LINES[name]}", launches=None,
             max_abs_err=err, ms=min(ms, ms2), plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-            shape=list(inp["arr"].shape), k=(inp["adj"].shape[1]
-                                             if "adj" in inp else None),
+            shape=list(inp["delivered"].shape),
+            k=(inp["adj"].shape[1] if "adj" in inp else None),
             ms_repeats=[ms, ms2], wrapper_ms=wrapper_ms)
+        if name == "latency_hist":
+            entry["cols"] = int(inp["cols"].shape[0])
         if name == "fused_sweep":
             # the same plane pass without the forward scatter: the
             # deliver_sweep kernel on fused_sweep's inputs
@@ -381,7 +532,14 @@ def check_main_path(torch):
 
 
 TPU_LINES = {"fused_sweep": 121, "deliver_sweep": 75, "frontier_sweep": 139,
-             "retire_reduce": 178}
+             "retire_reduce": 178, "retire_scan": 161, "latency_hist": 203}
+SOURCES = {"fused_sweep": "fused_sweep.cu",
+           "deliver_sweep": "deliver_sweep.cu",
+           "frontier_sweep": "frontier_sweep.cu",
+           "retire_reduce": "retire_reduce.cu",
+           # retire_scan is retire_reduce.cu with its record outputs off
+           "retire_scan": "retire_reduce.cu",
+           "latency_hist": "latency_hist.cu"}
 
 
 # --------------------------------------------------------------------- #
@@ -416,6 +574,26 @@ def gated_spec(n: int = 50_000, k: int = 17, device=None, oracle=False):
         metrics=MetricsSpec(snapshot="last_churn", oracle=oracle))
 
 
+def serve_spec(messages: int, n: int = 65_536, window: int = 1024,
+               obs=None, device=None):
+    """The headline serving configuration of BENCH_serve.json and
+    benchmarks/bench_serve.py (N=65,536, k-regular K=4, max_delay 1,
+    bursty arrivals at 64 a round over a base of 16 with one
+    311-round spike, defer admission, queue 65,536, window 1,024,
+    seg_len 16, p99 SLO 640 rounds), on the windowed engine."""
+    from repro_torch.api import (LiveSpec, ObsSpec, RunSpec, TopologySpec,
+                                 WindowSpec)
+    return RunSpec(
+        protocol="pc", mode="live", engine="windowed", n=n, seed=0,
+        device=device,
+        topology=TopologySpec(kind="kregular", k=4, max_delay=1),
+        window=WindowSpec(window=window, seg_len=16, collect="aggregate"),
+        live=LiveSpec(arrivals="bursty", admission="defer", rate=64.0,
+                      rate_lo=16.0, period=16_384, duty=0.019,
+                      messages=messages, queue_cap=65_536, slo_p99=640.0),
+        obs=obs or ObsSpec())
+
+
 def sustained_phase(torch):
     from repro_torch.api import build_scenario, run
     from repro_torch.core.vecsim import kernels as kx
@@ -437,7 +615,12 @@ def sustained_phase(torch):
     assert res.peak_live <= 16_384, res.peak_live
     assert launches["fused_sweep"] == rep.rounds, (launches, rep.rounds)
     assert launches["retire_reduce"] == res.sweeps, (launches, res.sweeps)
+    assert launches["latency_hist"] == res.app_sweeps > 0, (
+        launches, res.app_sweeps)
+    assert rep.extras["latency_hist_total"] == int(
+        res.deliv_count[: rep.m_app].sum())
     assert launches["deliver_sweep"] == launches["frontier_sweep"] == 0
+    assert launches["retire_scan"] == 0, launches
     sends = rep.stats.sent_messages
     emit("sustained", n=rep.n, messages=rep.m_app, rounds=rep.rounds,
          segments=res.segments, retire_sweeps=res.sweeps,
@@ -448,10 +631,14 @@ def sustained_phase(torch):
          deliveries=rep.stats.deliveries,
          delivered_frac=rep.delivered_frac,
          mean_latency_rounds=rep.mean_latency, peak_live=res.peak_live,
+         latency_p50=rep.extras["latency_p50"],
+         latency_p99=rep.extras["latency_p99"],
+         latency_p999=rep.extras["latency_p999"],
          peak_memory_bytes=torch.cuda.max_memory_allocated(),
-         launches={k: launches[k] for k in ("fused_sweep",
-                                            "retire_reduce")})
-    return {k: launches[k] for k in ("fused_sweep", "retire_reduce")}
+         launches={k: launches[k] for k in ("fused_sweep", "retire_reduce",
+                                            "latency_hist", "retire_scan")})
+    return {k: launches[k] for k in ("fused_sweep", "retire_reduce",
+                                     "retire_scan")}
 
 
 def gated_phase(torch):
@@ -473,6 +660,7 @@ def gated_phase(torch):
     assert launches["deliver_sweep"] == rep.rounds, (launches, rep.rounds)
     assert launches["frontier_sweep"] == rep.rounds, (launches, rep.rounds)
     assert launches["fused_sweep"] == launches["retire_reduce"] == 0
+    assert launches["retire_scan"] == 0, launches
     emit("gated", n=rep.n, k=spec.topology.k, messages=rep.m_app,
          adds=rep.scenario.n_adds, rounds=rep.rounds,
          run_wall_seconds=wall, engine_wall_seconds=rep.wall_seconds,
@@ -483,8 +671,155 @@ def gated_phase(torch):
          oracle=rep.oracle.summary(),
          peak_memory_bytes=torch.cuda.max_memory_allocated(),
          launches={k: launches[k] for k in ("deliver_sweep",
-                                            "frontier_sweep")})
-    return {k: launches[k] for k in ("deliver_sweep", "frontier_sweep")}
+                                            "frontier_sweep", "retire_scan")})
+    return {k: launches[k] for k in ("deliver_sweep", "frontier_sweep",
+                                     "retire_scan")}
+
+
+def serve_phase(torch, np):
+    """The serving path at the headline configuration, with every
+    telemetry pillar on; returns the launches of its one kernel that no
+    other phase drives (latency_hist) and of retire_scan (0)."""
+    import tempfile
+
+    from repro_torch.api import ObsSpec, run
+    from repro_torch.core.vecsim import kernels as kx
+    from repro_torch.obs import load_metrics_jsonl, load_ops_jsonl
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {key: os.path.join(tmp, name) for key, name in (
+            ("metrics", "serve.metrics.jsonl"), ("trace", "serve.trace.json"),
+            ("ops", "serve.ops.jsonl"))}
+        spec = serve_spec(SERVE_MESSAGES, obs=ObsSpec(
+            spans=True, provenance=1024, sampler="hash", audit="fail",
+            metrics_out=paths["metrics"], trace_out=paths["trace"],
+            ops_out=paths["ops"], ops_sink="jsonl", ops_every=16))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kx.reset_launches()
+        t0 = time.perf_counter()
+        rep = run(spec)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kx.LAUNCHES)
+        lr, res, ex = rep.live, rep.result, rep.extras
+        assert rep.engine == "windowed" and rep.window == spec.window.window
+        assert rep.device.startswith("cuda")
+        assert (lr.admitted + lr.shed_queue + lr.shed_policy + lr.unserved
+                == lr.offered == SERVE_MESSAGES), lr.to_dict()
+        assert lr.unserved == 0 and lr.delivered_frac == 1.0, lr.to_dict()
+        assert ex["latency_hist_total"] == int(
+            res.deliv_count[: rep.m_app].sum()) > 0
+        assert ex["audit_violations"] == 0 and ex["audit_pairs_checked"] > 0
+        assert launches["fused_sweep"] == lr.rounds, (launches, lr.rounds)
+        assert launches["retire_reduce"] == res.sweeps, (launches,
+                                                         res.sweeps)
+        assert launches["latency_hist"] == res.app_sweeps > 0, (
+            launches, res.app_sweeps)
+        assert launches["deliver_sweep"] == launches["frontier_sweep"] == 0
+        assert launches["retire_scan"] == 0, launches
+        doc = load_metrics_jsonl(paths["metrics"])
+        assert int(doc["latency_hist"].sum()) == ex["latency_hist_total"]
+        assert len(doc["provenance"]) == ex["provenance_sampled"]
+        with open(paths["trace"]) as fh:
+            trace = json.load(fh)["traceEvents"]
+        ticks = load_ops_jsonl(paths["ops"])
+        assert ticks and ticks[-1]["admitted_total"] == lr.admitted
+    span_ms = {}
+    for ev in rep.obs.spans.events():
+        if ev["kind"] == "span":
+            span_ms[ev["name"]] = span_ms.get(ev["name"], 0.0) + \
+                ev["dur_ns"] / 1e6
+    emit("serve", n=rep.n, window=rep.window, seg_len=16,
+         offered=lr.offered, admitted=lr.admitted, shed=lr.shed_queue
+         + lr.shed_policy, unserved=lr.unserved, rounds=lr.rounds,
+         ticks=lr.ticks_run, segments=res.segments, retire_sweeps=res.sweeps,
+         engine_wall_seconds=lr.wall_seconds, run_wall_seconds=wall,
+         requests_per_sec=lr.requests_per_sec, p50=lr.p50, p99=lr.p99,
+         p999=lr.p999, mean_latency_rounds=lr.mean_latency_rounds,
+         slo_ok=lr.slo_ok, queue_peak=lr.queue_peak,
+         backpressure_ticks=lr.backpressure_ticks,
+         overflow_catches=lr.overflow_catches, peak_live=lr.peak_live,
+         delivered_frac=lr.delivered_frac,
+         latency_hist_total=ex["latency_hist_total"],
+         provenance_sampled=ex["provenance_sampled"],
+         audit_pairs_checked=ex["audit_pairs_checked"],
+         audit_violations=ex["audit_violations"],
+         trace_events=len(trace), ops_records=len(ticks),
+         span_host_ms=span_ms, spans_dropped=rep.obs.spans.dropped,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         launches={k: launches[k] for k in ("fused_sweep", "retire_reduce",
+                                            "latency_hist", "retire_scan")})
+    return {k: launches[k] for k in ("latency_hist", "retire_scan")}
+
+
+def live_parity_phase(np):
+    """Two N=1,024 live runs on the card and on the CPU, byte for byte:
+    the report, the per-tick records, the series, the delivered matrix,
+    the histogram, the provenance and the ops records."""
+    import tempfile
+
+    from repro_torch.api import ObsSpec, run
+    from repro_torch.obs import load_ops_jsonl
+    cases = {"bursty_defer_n1024": dict(admission="defer", window=48),
+             "admit_overflow_n1024": dict(admission="admit", window=32)}
+    for name, case in cases.items():
+        t0 = time.perf_counter()
+        reps, ops = [], []
+        with tempfile.TemporaryDirectory() as tmp:
+            for device in (None, "cpu"):
+                path = os.path.join(tmp, f"ops.{device}.jsonl")
+                spec = parity_live_spec(case, device, path)
+                reps.append(run(spec))
+                ops.append(load_ops_jsonl(path))
+        gpu, cpu = reps
+        a, b = gpu.result, cpu.result
+        assert gpu.device.startswith("cuda") and cpu.device == "cpu"
+        da, db = gpu.live.to_dict(), cpu.live.to_dict()
+        for key in ("wall_seconds", "requests_per_sec"):
+            da.pop(key)
+            db.pop(key)
+        assert da == db, name
+        assert gpu.live.ticks == cpu.live.ticks, name
+        assert gpu.oracle.ok and cpu.oracle.ok, name
+        assert a.stats == b.stats, name
+        for key in ("delivered", "series", "deliv_count", "deliv_round_sum",
+                    "bcast_done", "expired"):
+            np.testing.assert_array_equal(getattr(a, key), getattr(b, key),
+                                          f"{name}/{key}")
+        np.testing.assert_array_equal(gpu.obs.latency_hist,
+                                      cpu.obs.latency_hist, name)
+        assert gpu.obs.flight.export() == cpu.obs.flight.export(), name
+        assert ops[0] == ops[1] and ops[0], name
+        drop = ("serve_requests_per_sec",)
+        assert ({k: v for k, v in gpu.extras.items() if k not in drop}
+                == {k: v for k, v in cpu.extras.items() if k not in drop})
+        if case["admission"] == "admit":
+            assert gpu.live.overflow_catches > 0, name
+        else:
+            assert gpu.live.backpressure_ticks > 0, name
+        emit("live_parity", case=name, rounds=gpu.rounds,
+             ticks=gpu.live.ticks_run,
+             overflow_catches=gpu.live.overflow_catches,
+             backpressure_ticks=gpu.live.backpressure_ticks,
+             provenance_records=len(gpu.obs.flight.completed),
+             audit_pairs_checked=gpu.extras["audit_pairs_checked"],
+             identical=True, seconds=time.perf_counter() - t0)
+
+
+def parity_live_spec(case, device, ops_out):
+    from repro_torch.api import (LiveSpec, MetricsSpec, ObsSpec, RunSpec,
+                                 TopologySpec, WindowSpec)
+    return RunSpec(
+        protocol="pc", mode="live", engine="windowed", n=1024, seed=4,
+        device=device,
+        topology=TopologySpec(kind="kregular", k=4, max_delay=1),
+        window=WindowSpec(window=case["window"], seg_len=8, collect="full"),
+        live=LiveSpec(arrivals="bursty", admission=case["admission"],
+                      rate=16.0, period=64, duty=0.5, messages=120,
+                      queue_cap=4096),
+        metrics=MetricsSpec(oracle=True),
+        obs=ObsSpec(provenance=1, sampler="all", audit="fail",
+                    ops_out=ops_out, ops_sink="jsonl", ops_every=2))
 
 
 def parity_phase(np):

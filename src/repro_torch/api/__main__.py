@@ -1,4 +1,4 @@
-"""``python -m repro_torch.api`` — run a batch RunSpec from JSON or flags.
+"""``python -m repro_torch.api`` — run a RunSpec from JSON or flags.
 
 Spec sources compose left to right: section defaults, then ``--spec``
 JSON (a file path or an inline JSON object, e.g. a JAX package spec's
@@ -8,6 +8,9 @@ rows).  Runs on the card unless ``--device cpu``.
 
     python -m repro_torch.api --protocol pc --engine vec --n 256 \\
         --dynamics churn --messages 12 --oracle
+    python -m repro_torch.api --serve --n 1024 --arrivals bursty \\
+        --rate 16 --messages 4000 --window 256 --provenance 64 \\
+        --audit fail --trace-out serve_trace.json
     python -m repro_torch.api --spec experiment.json
     python -m repro_torch.api --list            # registry keys
 """
@@ -19,7 +22,8 @@ import json
 import sys
 
 from ..backend import DeviceUnavailableError, cuda_available
-from . import (ENGINES, PROTOCOLS, SCENARIOS, TOPOLOGIES, TRAFFIC, RunSpec,
+from . import (ADMISSION, ARRIVALS, AUDIT, ENGINES, OPS_SINKS, PROTOCOLS,
+               SAMPLERS, SCENARIOS, SINKS, TOPOLOGIES, TRAFFIC, RunSpec,
                SpecError, describe_entry, run)
 
 
@@ -71,9 +75,69 @@ def build_parser() -> argparse.ArgumentParser:
     win.add_argument("--seg-len", type=int)
     win.add_argument("--horizon", type=int)
     win.add_argument("--collect", choices=("auto", "full", "aggregate"))
+    lv = ap.add_argument_group("live serving (mode='live')")
+    lv.add_argument("--serve", action="store_true",
+                    help="run as an open-loop service (mode='live'): an "
+                         "arrival process feeds a bounded ingest queue, "
+                         "an admission policy micro-batches it into the "
+                         "windowed engine each segment; --rate/"
+                         "--messages then describe the offered load")
+    lv.add_argument("--arrivals", choices=sorted(ARRIVALS.keys()),
+                    help="open-loop arrival process (live mode)")
+    lv.add_argument("--admission", choices=sorted(ADMISSION.keys()),
+                    help="admission policy against the window-occupancy "
+                         "backpressure signal (live mode)")
+    lv.add_argument("--queue-cap", type=int,
+                    help="bounded ingest queue length; overflow is "
+                         "tail-dropped into the shed count (live mode)")
+    lv.add_argument("--admit-cap", type=int,
+                    help="max admissions per simulated round "
+                         "(live.per_round_cap; default auto from --rate)")
+    lv.add_argument("--slo-p99", type=float,
+                    help="p99 rounds-to-delivery SLO target; the report's "
+                         "serve_slo_ok says whether it was met")
     met = ap.add_argument_group("metrics")
     met.add_argument("--oracle", action="store_true", default=None,
                      help="happens-before oracle check on the trace")
+    obs = ap.add_argument_group("observability")
+    obs.add_argument("--trace-out", metavar="PATH",
+                     help="write structured trace spans as Perfetto-"
+                          "loadable Chrome trace JSON (implies span "
+                          "recording)")
+    obs.add_argument("--metrics-out", metavar="PATH",
+                     help="write the run's latency histogram / gauges / "
+                          "counters through the --sink writer")
+    obs.add_argument("--sink", choices=sorted(SINKS.keys()),
+                     help="metrics sink format for --metrics-out "
+                          "(default jsonl)")
+    obs.add_argument("--spans", action="store_true", default=None,
+                     help="record trace spans even without --trace-out "
+                          "(kept on report.obs.spans)")
+    fr = ap.add_argument_group("flight recorder")
+    fr.add_argument("--provenance", type=int, metavar="RATE",
+                    help="sample 1-in-RATE application broadcasts and "
+                         "record their full lifecycle (submit/admit/"
+                         "activate/deliver/retire); exported as "
+                         "provenance JSONL records and per-message "
+                         "Perfetto tracks")
+    fr.add_argument("--sampler", choices=sorted(SAMPLERS.keys()),
+                    help="provenance sampling policy (default hash: "
+                         "deterministic splitmix64 of origin+round)")
+    fr.add_argument("--audit", choices=sorted(AUDIT.keys()),
+                    help="online causality auditor over the sampled "
+                         "records: log (count violations) or fail "
+                         "(raise on the first); needs --provenance")
+    fr.add_argument("--ops-out", metavar="PATH",
+                    help="stream per-tick ops gauges to PATH through "
+                         "--ops-sink (live mode)")
+    fr.add_argument("--ops-sink", choices=sorted(OPS_SINKS.keys()),
+                    help="ops stream format for --ops-out "
+                         "(default prometheus)")
+    fr.add_argument("--ops-every", type=int, metavar="N",
+                    help="publish ops gauges every N ticks (default 1)")
+    fr.add_argument("--watch", action="store_true", default=None,
+                    help="live terminal dashboard on stderr (plain "
+                         "line-per-tick records when not a TTY)")
     return ap
 
 
@@ -90,7 +154,18 @@ _FLAG_MAP = [
     ("n_rms", "dynamics", "n_rms"), ("n_crashes", "dynamics", "n_crashes"),
     ("window", "window", "window"), ("seg_len", "window", "seg_len"),
     ("horizon", "window", "horizon"), ("collect", "window", "collect"),
+    ("arrivals", "live", "arrivals"), ("admission", "live", "admission"),
+    ("queue_cap", "live", "queue_cap"),
+    ("admit_cap", "live", "per_round_cap"),
+    ("slo_p99", "live", "slo_p99"),
     ("oracle", "metrics", "oracle"),
+    ("trace_out", "obs", "trace_out"),
+    ("metrics_out", "obs", "metrics_out"),
+    ("sink", "obs", "sink"), ("spans", "obs", "spans"),
+    ("provenance", "obs", "provenance"), ("sampler", "obs", "sampler"),
+    ("audit", "obs", "audit"), ("ops_out", "obs", "ops_out"),
+    ("ops_sink", "obs", "ops_sink"), ("ops_every", "obs", "ops_every"),
+    ("watch", "obs", "watch"),
 ]
 
 
@@ -104,6 +179,15 @@ def spec_from_args(args: argparse.Namespace) -> RunSpec:
             d[fld] = value
         else:
             d.setdefault(section, {})[fld] = value
+    if args.serve:
+        d["mode"] = "live"
+        # under --serve, --rate/--messages describe the offered load,
+        # not a pre-scripted traffic schedule
+        tr = d.get("traffic", {})
+        live = d.setdefault("live", {})
+        for fld in ("rate", "messages"):
+            if fld in tr:
+                live.setdefault(fld, tr.pop(fld))
     return RunSpec.from_dict(d)
 
 
@@ -112,7 +196,13 @@ def print_registries() -> None:
     then whether the port's CUDA kernels can run here."""
     for name, registry in (("protocols", PROTOCOLS), ("engines", ENGINES),
                            ("topologies", TOPOLOGIES), ("traffic", TRAFFIC),
-                           ("scenarios (dynamics kinds)", SCENARIOS)):
+                           ("scenarios (dynamics kinds)", SCENARIOS),
+                           ("arrivals (live mode)", ARRIVALS),
+                           ("admission (live mode)", ADMISSION),
+                           ("sinks (--metrics-out formats)", SINKS),
+                           ("samplers (--provenance policies)", SAMPLERS),
+                           ("audit (--audit modes)", AUDIT),
+                           ("ops sinks (--ops-out formats)", OPS_SINKS)):
         print(f"{name}:")
         for key in sorted(registry.keys()):
             desc = describe_entry(registry.get(key))
@@ -147,7 +237,18 @@ def main(argv=None) -> int:
         if args.dump_spec:
             print(json.dumps(spec.validate().to_dict(), indent=2))
             return 0
-        rep = run(spec)
+        on_tick = None
+        if args.serve:
+            tick_no = [0]
+
+            def on_tick(info):
+                tick_no[0] += 1
+                if tick_no[0] % 16 == 0:
+                    print(f"  serve: t={info['t']} "
+                          f"admitted={info['admitted_total']} "
+                          f"queue={info['queue']} live={info['live']} "
+                          f"shed={info['shed']}", file=sys.stderr)
+        rep = run(spec, on_tick=on_tick)
     except (SpecError, DeviceUnavailableError, FileNotFoundError,
             json.JSONDecodeError, TypeError) as exc:
         # TypeError: a JSON spec with a wrongly-typed field value

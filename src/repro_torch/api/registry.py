@@ -1,6 +1,8 @@
 """String-keyed registries: the pluggable axes of the port's experiment
-API — protocols, engines, topologies, traffic patterns and scenario
-families (``DynamicsSpec.kind`` -> :class:`VecScenario` builder).
+API — protocols, engines, topologies, traffic patterns, scenario
+families (``DynamicsSpec.kind`` -> :class:`VecScenario` builder), the
+live serving policies (arrivals, admission) and the telemetry outputs
+(metrics sinks, provenance samplers, audit modes, ops sinks).
 ``repro_torch.api.run`` resolves every axis of a
 :class:`~repro_torch.api.spec.RunSpec` through these tables.  Engine
 entries are registered by ``repro_torch.api.run`` at import time.
@@ -12,11 +14,17 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterable, Optional
 
 from ..core.vecsim import scenario as _scn
+from ..core.vecsim.live import _ADMISSION, _ARRIVALS
+from ..obs.audit import AUDIT_MODES as _AUDIT_MODES
+from ..obs.flight import SAMPLERS as _SAMPLERS
+from ..obs.ops import OPS_SINKS as _OPS_SINKS
+from ..obs.sinks import SINKS as _SINKS
 from .spec import RunSpec, SpecError
 
 __all__ = ["Registry", "ProtocolEntry", "EngineEntry", "ScenarioEntry",
            "PROTOCOLS", "ENGINES", "TOPOLOGIES", "TRAFFIC", "SCENARIOS",
-           "describe_entry"]
+           "ARRIVALS", "ADMISSION", "SINKS", "SAMPLERS", "AUDIT",
+           "OPS_SINKS", "describe_entry"]
 
 
 class Registry:
@@ -70,6 +78,17 @@ ENGINES = Registry("engine")        # populated by repro_torch.api.run
 TOPOLOGIES = Registry("topology", items=_scn._TOPOLOGIES)
 TRAFFIC = Registry("traffic", items=_scn._TRAFFIC)
 SCENARIOS = Registry("scenario")
+# live serving (LiveSpec.arrivals / .admission), wrapped live from
+# core.vecsim.live
+ARRIVALS = Registry("arrivals", items=_ARRIVALS)
+ADMISSION = Registry("admission", items=_ADMISSION)
+# telemetry outputs, wrapped live from repro_torch.obs: metrics sinks
+# (ObsSpec.sink), provenance samplers (.sampler), causality-audit modes
+# (.audit) and live ops-plane sinks (.ops_sink)
+SINKS = Registry("sink", items=_SINKS)
+SAMPLERS = Registry("sampler", items=_SAMPLERS)
+AUDIT = Registry("audit mode", items=_AUDIT_MODES)
+OPS_SINKS = Registry("ops sink", items=_OPS_SINKS)
 
 
 @dataclass(frozen=True)

@@ -1,14 +1,15 @@
-"""Declarative experiment specs of the port: the batch-mode ``RunSpec``.
+"""Declarative experiment specs of the port: ``RunSpec``, batch or live.
 
 Same sections and field names as the JAX package's ``repro.api.spec``
-(topology, traffic, dynamics, window, metrics), with one change:
-``backend`` becomes ``device`` — ``None`` (the card, the default) or
-``"cpu"``.  :meth:`RunSpec.from_dict` accepts the JAX package's
-``RunSpec.to_dict()`` output: its ``backend`` key is dropped, and the
-sections this port does not run yet (sharded engine, live serving,
-telemetry, the exact engine's cross-validation, the vector-clock
-protocol) are accepted only at their defaults — any other value raises
-:class:`SpecError` naming the slice of the port that will bring it.
+(topology, traffic, dynamics, window, live, metrics, obs), with one
+change: ``backend`` becomes ``device`` — ``None`` (the card, the
+default) or ``"cpu"``.  :meth:`RunSpec.from_dict` accepts the JAX
+package's ``RunSpec.to_dict()`` output: its ``backend`` key is dropped,
+and what this port does not run yet (the sharded engine and its
+``shard`` section, the exact engine's cross-validation, the
+vector-clock protocol) is accepted only at its defaults — any other
+value raises :class:`SpecError` naming the slice of the port that will
+bring it.
 
 Validation is eager: :meth:`RunSpec.validate` raises :class:`SpecError`
 naming the offending field and the valid registry keys.
@@ -21,7 +22,7 @@ from dataclasses import dataclass, field, replace
 from typing import Any, Dict, Optional, Union
 
 __all__ = ["SpecError", "TopologySpec", "TrafficSpec", "DynamicsSpec",
-           "WindowSpec", "MetricsSpec", "RunSpec"]
+           "WindowSpec", "LiveSpec", "ObsSpec", "MetricsSpec", "RunSpec"]
 
 
 class SpecError(ValueError):
@@ -77,6 +78,80 @@ class WindowSpec:
 
 
 @dataclass(frozen=True)
+class LiveSpec:
+    """Live serving-mode knobs (``mode="live"``; DESIGN.md §2.9).
+
+    In live mode the run is an *open-loop service*: an arrival process
+    (registry: ``repro_torch.api.ARRIVALS``) submits broadcasts into a
+    bounded ingest queue as simulated time passes, and an admission
+    policy (registry: ``repro_torch.api.ADMISSION``) plans each
+    segment's micro-batch against the engine's window-occupancy
+    backpressure signal.  The ``traffic`` section is ignored — live
+    traffic is not pre-scripted — while topology/dynamics still shape
+    the overlay under serving.
+
+    ``per_round_cap`` bounds admissions per simulated round (default
+    ``min(n, max(4, ceil(3·rate)))``).  ``slo_p99`` is a
+    rounds-to-delivery target: the report's ``slo_ok`` says whether the
+    measured p99 (queueing delay included) met it."""
+
+    arrivals: str = "poisson"      # repro_torch.api.ARRIVALS key
+    admission: str = "defer"       # repro_torch.api.ADMISSION key
+    rate: float = 8.0              # mean offered submissions per round
+    messages: int = 1024           # total submissions offered
+    queue_cap: int = 4096          # bounded ingest queue (tail-drop)
+    per_round_cap: Optional[int] = None   # admissions per round; None=auto
+    slo_p99: Optional[float] = None       # p99 rounds-to-delivery target
+    rate_lo: Optional[float] = None       # bursty baseline (default rate/8)
+    period: int = 256              # bursty/diurnal period in rounds
+    duty: float = 0.25             # bursty high-rate fraction of period
+
+
+@dataclass(frozen=True)
+class ObsSpec:
+    """Telemetry knobs (``repro_torch.obs``; DESIGN.md §2.10-§2.11).
+
+    ``histograms=None`` (the default) turns the delivery-latency
+    histogram on wherever an engine supports it (the windowed engine
+    and every live run) and off on the monolithic engine; an explicit
+    bool forces it.  Results are byte-identical either way.
+
+    ``spans`` records structured trace spans (live-loop ticks, segment
+    dispatch/retire phases) into a preallocated ring; ``trace_out``
+    writes them as Perfetto-loadable Chrome trace JSON and implies
+    ``spans=True``.  ``metrics_out`` writes the run's
+    histogram/gauge/counter doc through the named ``sink`` (registry:
+    ``repro_torch.api.SINKS``).
+
+    **Flight recorder**: ``provenance=R`` samples 1-in-R application
+    broadcasts (via ``sampler``, registry ``repro_torch.api.SAMPLERS``;
+    seeded by the run seed) and records their full lifecycle — exported
+    as ``provenance`` JSONL records and per-message Perfetto tracks.
+    ``audit`` (registry ``repro_torch.api.AUDIT``) runs the online
+    causality auditor over the sampled records during execution; it
+    requires ``provenance``.  Windowed and live runs only.
+
+    **Live ops plane**: ``ops_out`` streams per-tick gauges through
+    ``ops_sink`` (registry: ``repro_torch.api.OPS_SINKS``) every
+    ``ops_every`` ticks; ``watch`` renders a terminal dashboard (plain
+    lines when stderr is not a TTY).  Live mode only."""
+
+    histograms: Optional[bool] = None   # None = auto per engine
+    spans: bool = False                 # record trace spans
+    span_capacity: int = 65536          # span ring size (events)
+    trace_out: Optional[str] = None     # Chrome trace JSON (implies spans)
+    metrics_out: Optional[str] = None   # metrics doc path (via `sink`)
+    sink: str = "jsonl"                 # repro_torch.api.SINKS key
+    provenance: Optional[int] = None    # sample 1-in-N broadcasts
+    sampler: str = "hash"               # repro_torch.api.SAMPLERS key
+    audit: str = "off"                  # repro_torch.api.AUDIT key
+    ops_out: Optional[str] = None       # live ops stream path
+    ops_sink: str = "prometheus"        # repro_torch.api.OPS_SINKS key
+    ops_every: int = 1                  # publish every N ticks
+    watch: bool = False                 # --watch terminal dashboard
+
+
+@dataclass(frozen=True)
 class MetricsSpec:
     """What to measure beyond the engine's NetStats."""
 
@@ -91,19 +166,7 @@ class MetricsSpec:
 _LATER_SECTIONS = {
     "shard": ("the sharded-engine slice",
               dict(devices=None, scan="auto", profile=False)),
-    "live": ("the live-serving slice",
-             dict(arrivals="poisson", admission="defer", rate=8.0,
-                  messages=1024, queue_cap=4096, per_round_cap=None,
-                  slo_p99=None, rate_lo=None, period=256, duty=0.25)),
-    "obs": ("the telemetry slice",
-            dict(histograms=None, spans=False, span_capacity=65536,
-                 trace_out=None, metrics_out=None, sink="jsonl",
-                 provenance=None, sampler="hash", audit="off",
-                 ops_out=None, ops_sink="prometheus", ops_every=1,
-                 watch=False)),
 }
-# obs fields whose "off" value is also what the port does
-_OBS_OFF = {"histograms": False}
 _LATER_VALUES = {
     ("protocol", "vc"): "the vector-clock baseline slice",
     ("engine", "exact"): "the exact-engine slice",
@@ -119,10 +182,11 @@ def _later(what: str, slice_name: str) -> SpecError:
 
 @dataclass(frozen=True)
 class RunSpec:
-    """One batch experiment, declaratively:
+    """One experiment, declaratively:
     ``repro_torch.api.run(RunSpec(...))``."""
 
     protocol: str = "pc"       # pc | r   (repro_torch.api.PROTOCOLS)
+    mode: str = "batch"        # batch (pre-scripted) | live (open-loop)
     engine: str = "auto"       # auto | vec | windowed
     device: Optional[str] = None   # None = the card | "cuda" | "cpu"
     n: int = 64                # processes
@@ -134,7 +198,9 @@ class RunSpec:
     traffic: TrafficSpec = field(default_factory=TrafficSpec)
     dynamics: DynamicsSpec = field(default_factory=DynamicsSpec)
     window: WindowSpec = field(default_factory=WindowSpec)
+    live: LiveSpec = field(default_factory=LiveSpec)
     metrics: MetricsSpec = field(default_factory=MetricsSpec)
+    obs: ObsSpec = field(default_factory=ObsSpec)
     # Escape hatch: run a prebuilt VecScenario (topology/traffic/dynamics
     # sections are then ignored).
     scenario: Optional[Any] = None
@@ -197,11 +263,80 @@ class RunSpec:
                 f"window.window={self.window.window} only applies to "
                 "engine 'windowed' or 'auto' (got engine='vec'); the "
                 "monolithic engine would silently ignore it")
+        ob = self.obs
+        if ob.histograms is not None and not isinstance(ob.histograms,
+                                                        bool):
+            raise SpecError(f"obs.histograms={ob.histograms!r} must be a "
+                            "bool or None (auto)")
+        if not isinstance(ob.span_capacity, int) \
+                or isinstance(ob.span_capacity, bool) \
+                or ob.span_capacity < 1:
+            raise SpecError(f"obs.span_capacity={ob.span_capacity!r} must "
+                            "be an int >= 1")
+        check_key(reg.SINKS, ob.sink, "obs.sink")
+        if ob.provenance is not None and (
+                not isinstance(ob.provenance, int)
+                or isinstance(ob.provenance, bool)
+                or ob.provenance < 1):
+            raise SpecError(f"obs.provenance={ob.provenance!r} must be "
+                            "an int >= 1 (sample 1-in-N) or None")
+        check_key(reg.SAMPLERS, ob.sampler, "obs.sampler")
+        check_key(reg.AUDIT, ob.audit, "obs.audit")
+        check_key(reg.OPS_SINKS, ob.ops_sink, "obs.ops_sink")
+        if not isinstance(ob.ops_every, int) \
+                or isinstance(ob.ops_every, bool) or ob.ops_every < 1:
+            raise SpecError(f"obs.ops_every={ob.ops_every!r} must be an "
+                            "int >= 1")
+        if ob.audit != "off" and ob.provenance is None:
+            raise SpecError("obs.audit consumes sampled provenance "
+                            "records; set obs.provenance (e.g. 1 to "
+                            "sample everything)")
+        if ob.provenance is not None and self.mode != "live" \
+                and self.engine == "vec":
+            raise SpecError(
+                "obs.provenance needs a streaming engine (the hooks ride "
+                "column retirement); engine='vec' has no window to "
+                "sample — use 'windowed' or 'auto'")
+        if self.mode != "live" and (ob.ops_out is not None or ob.watch):
+            raise SpecError("obs.ops_out/obs.watch are the live ops "
+                            "plane; they need mode='live'")
         snap = self.metrics.snapshot
         if snap is not None and not (isinstance(snap, int)
                                      or snap == "last_churn"):
             raise SpecError(f"metrics.snapshot={snap!r} must be a round "
                             "number or 'last_churn'")
+        if self.mode not in ("batch", "live"):
+            raise SpecError(f"mode={self.mode!r} must be 'batch' or 'live'")
+        if self.mode == "live":
+            lv = self.live
+            check_key(reg.ARRIVALS, lv.arrivals, "live.arrivals")
+            check_key(reg.ADMISSION, lv.admission, "live.admission")
+            if lv.messages < 1:
+                raise SpecError("live.messages must be >= 1")
+            if lv.rate <= 0:
+                raise SpecError("live.rate must be > 0")
+            if lv.queue_cap < 1:
+                raise SpecError("live.queue_cap must be >= 1")
+            if lv.per_round_cap is not None \
+                    and not (1 <= lv.per_round_cap <= self.n):
+                raise SpecError(
+                    f"live.per_round_cap={lv.per_round_cap} must be in "
+                    f"[1, n={self.n}] (one broadcast per (origin, round))")
+            if self.engine not in ("auto", "windowed"):
+                raise SpecError(
+                    f"mode='live' serves through the streaming engine; "
+                    f"engine must be 'auto' or 'windowed' (got "
+                    f"{self.engine!r})")
+            if snap is not None:
+                raise SpecError("metrics.snapshot is not supported in "
+                                "mode='live' (segment boundaries are "
+                                "load-dependent)")
+            if self.scenario is not None:
+                raise SpecError(
+                    "mode='live' builds its own broadcast-free base "
+                    "scenario from the topology/dynamics sections; a "
+                    "prebuilt scenario belongs to batch mode (drive "
+                    "LiveLoop directly for custom bases)")
         return self
 
     # ----------------------------------------------------------------- #
@@ -218,20 +353,16 @@ class RunSpec:
         """Build a spec from a (possibly partial) nested dict — unknown
         keys raise, missing keys take the dataclass defaults.  A JAX
         package spec dict is accepted: ``backend`` is dropped in favour
-        of ``device``, ``mode="batch"``, ``metrics.crossval=False`` and
-        the ``shard``/``live``/``obs`` sections at their defaults pass,
-        and any other value of those raises :class:`SpecError`."""
+        of ``device``, ``metrics.crossval=False`` and the ``shard``
+        section at its defaults pass, and any other value of those
+        raises :class:`SpecError`."""
         sections = dict(topology=TopologySpec, traffic=TrafficSpec,
                         dynamics=DynamicsSpec, window=WindowSpec,
-                        metrics=MetricsSpec)
+                        live=LiveSpec, metrics=MetricsSpec, obs=ObsSpec)
         kw: Dict[str, Any] = {}
         top_fields = {f.name for f in dataclasses.fields(cls)}
         for key, value in d.items():
             if key == "backend":
-                continue
-            if key == "mode":
-                if value != "batch":
-                    raise _later(f"mode={value!r}", "the live-serving slice")
                 continue
             if key in _LATER_SECTIONS:
                 _check_later_section(key, value)
@@ -271,6 +402,5 @@ def _check_later_section(key: str, value: Any) -> None:
         if fld not in defaults:
             raise SpecError(f"unknown {key} field {fld!r}; valid fields: "
                             f"{sorted(defaults)}")
-        off = key == "obs" and fld in _OBS_OFF and v == _OBS_OFF[fld]
-        if v != defaults[fld] and not off:
+        if v != defaults[fld]:
             raise _later(f"{key}.{fld}={v!r}", slice_name)

@@ -41,7 +41,8 @@ _SIGNATURES = {
     "rt_fused_sweep": [_P] * 9 + [_I] * 4 + [_P],
     "rt_deliver_sweep": [_P] * 6 + [_I] * 3 + [_P],
     "rt_frontier_sweep": [_P] * 9 + [_I] * 4 + [_P],
-    "rt_retire_reduce": [_P] * 9 + [_I] * 4 + [_P],
+    "rt_retire_reduce": [_P] * 9 + [_I] * 5 + [_P],
+    "rt_latency_hist": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 

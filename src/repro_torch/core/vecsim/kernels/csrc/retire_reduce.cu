@@ -18,6 +18,11 @@
 // each, skipped when zero.  sumdel accumulates in int64 and so equals
 // the JAX kernel's int32 sum wherever that sum does not wrap
 // (N * rounds < 2^31).
+//
+// With record = 0 the same kernel is retire_scan, the TPU kernel
+// retire_scan_kernel of that kernel.py: it reads only delivered (arr
+// may be null) and writes only cnt, alivedel and blocked, so it moves
+// half the bytes.
 
 #include <cstddef>
 #include <cstdint>
@@ -28,6 +33,7 @@ namespace repro_torch {
 
 constexpr int kRetireCols = 128;
 
+template <bool kRecord>
 __global__ void retire_reduce_kernel(const int32_t* __restrict__ arr,
                                      const int32_t* __restrict__ delivered,
                                      const uint8_t* __restrict__ crashed,
@@ -52,15 +58,17 @@ __global__ void retire_reduce_kernel(const int32_t* __restrict__ arr,
       c += 1;
       a += crashed[p] == 0;
       b += d >= min_gate[p];
-      s += d;
+      if (kRecord) s += d;
     }
-    r += arr[idx] < rounds;
+    if (kRecord) r += arr[idx] < rounds;
   }
   if (c) atomicAdd(cnt + m, c);
   if (a) atomicAdd(alivedel + m, a);
   if (b) atomicAdd(blocked + m, b);
-  if (r) atomicAdd(arrcnt + m, r);
-  if (s) atomicAdd(sumdel + m, static_cast<unsigned long long>(s));
+  if (kRecord) {
+    if (r) atomicAdd(arrcnt + m, r);
+    if (s) atomicAdd(sumdel + m, static_cast<unsigned long long>(s));
+  }
 }
 
 }  // namespace repro_torch
@@ -69,15 +77,16 @@ extern "C" int rt_retire_reduce(const void* arr, const void* delivered,
                                 const void* crashed, const void* min_gate,
                                 void* cnt, void* alivedel, void* blocked,
                                 void* arrcnt, void* sumdel, int n, int w,
-                                int rows_per_chunk, int rounds,
+                                int rows_per_chunk, int rounds, int record,
                                 void* stream) {
   using namespace repro_torch;
   if (n > 0 && w > 0 && rows_per_chunk > 0) {
     const dim3 grid(static_cast<unsigned>((w + kRetireCols - 1) / kRetireCols),
                     static_cast<unsigned>((n + rows_per_chunk - 1) /
                                           rows_per_chunk));
-    retire_reduce_kernel<<<grid, kRetireCols, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
+    const auto kernel = record ? retire_reduce_kernel<true>
+                               : retire_reduce_kernel<false>;
+    kernel<<<grid, kRetireCols, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(arr),
         static_cast<const int32_t*>(delivered),
         static_cast<const uint8_t*>(crashed),

@@ -1,5 +1,5 @@
-"""Wrappers of the delivery-sweep kernels: the only way the engines
-reach them.
+"""Wrappers of the delivery-sweep, retirement and telemetry kernels: the
+only way the engines reach them.
 
 Each wrapper checks its tensors (device, dtype, shape, contiguity) and
 then runs, by the device the planes lie on:
@@ -34,15 +34,19 @@ from . import _build
 from . import ref as _ref
 
 __all__ = ["LAUNCHES", "reset_launches", "fused_sweep", "deliver_sweep",
-           "frontier_sweep", "retire_reduce"]
+           "frontier_sweep", "retire_reduce", "retire_scan", "latency_hist"]
 
 #: kernel name -> launches since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"fused_sweep": 0, "deliver_sweep": 0,
-                            "frontier_sweep": 0, "retire_reduce": 0}
+                            "frontier_sweep": 0, "retire_reduce": 0,
+                            "retire_scan": 0, "latency_hist": 0}
 
 # blocks of retire_reduce aimed for when W alone gives too few
 _RETIRE_TARGET_BLOCKS = 2048
 _RETIRE_COLS = 128          # kRetireCols in retire_reduce.cu
+# blocks of latency_hist aimed for; its column tiles are 32 wide
+_HIST_TARGET_BLOCKS = 2048
+_HIST_COLS = 32             # kHistCols in latency_hist.cu
 
 
 def reset_launches() -> None:
@@ -114,18 +118,50 @@ def launch_frontier_sweep(arr, delivered, adj, delay, gate, do, fwd_ok,
         _stream(arr.device)))
 
 
-def launch_retire_reduce(arr, delivered, crashed, min_gate, rounds, cnt,
-                         alivedel, blocked, arrcnt, sumdel):
-    n, w = arr.shape
+def _retire_chunks(n: int, w: int) -> int:
+    """Rows a block of retire_reduce walks: enough row chunks to fill
+    the card when W alone gives too few blocks, at most 65,535."""
     col_blocks = max(1, -(-w // _RETIRE_COLS))
     chunks = min(max(1, -(-_RETIRE_TARGET_BLOCKS // col_blocks)),
                  max(1, n), 65535)
-    rows_per_chunk = max(1, -(-n // chunks))
+    return max(1, -(-n // chunks))
+
+
+def launch_retire_reduce(arr, delivered, crashed, min_gate, rounds, cnt,
+                         alivedel, blocked, arrcnt, sumdel):
+    n, w = arr.shape
     _raise_on("retire_reduce", _build.load_library().rt_retire_reduce(
         arr.data_ptr(), delivered.data_ptr(), _u8(crashed),
         min_gate.data_ptr(), cnt.data_ptr(), alivedel.data_ptr(),
         blocked.data_ptr(), arrcnt.data_ptr(), sumdel.data_ptr(), n, w,
-        rows_per_chunk, int(rounds), _stream(arr.device)))
+        _retire_chunks(n, w), int(rounds), 1, _stream(arr.device)))
+
+
+def launch_retire_scan(delivered, crashed, min_gate, cnt, alivedel,
+                       blocked):
+    n, w = delivered.shape
+    _raise_on("retire_scan", _build.load_library().rt_retire_reduce(
+        None, delivered.data_ptr(), _u8(crashed), min_gate.data_ptr(),
+        cnt.data_ptr(), alivedel.data_ptr(), blocked.data_ptr(), None, None,
+        n, w, _retire_chunks(n, w), 0, 0, _stream(delivered.device)))
+
+
+def _hist_rows_per_chunk(n: int, ncols: int) -> int:
+    """Rows of one latency_hist row chunk: enough chunks that the column
+    tiles times the chunks reach ``_HIST_TARGET_BLOCKS``."""
+    tiles = max(1, -(-ncols // _HIST_COLS))
+    chunks = min(max(1, -(-_HIST_TARGET_BLOCKS // tiles)), max(1, n))
+    return max(1, -(-n // chunks))
+
+
+def launch_latency_hist(base, delivered, cols, hist):
+    """``cols`` is the card's copy of the column indices, or None."""
+    n, w = delivered.shape
+    ncols = hist.shape[0]
+    _raise_on("latency_hist", _build.load_library().rt_latency_hist(
+        base.data_ptr(), delivered.data_ptr(),
+        None if cols is None else cols.data_ptr(), hist.data_ptr(), n, w,
+        ncols, _hist_rows_per_chunk(n, ncols), _stream(delivered.device)))
 
 
 def _check_planes(arr, delivered, crashed, is_app):
@@ -232,3 +268,58 @@ def retire_reduce(arr, delivered, crashed, min_gate, rounds: int):
                          sumdel)
     LAUNCHES["retire_reduce"] += 1
     return (*outs, sumdel)
+
+
+def retire_scan(delivered, crashed, min_gate):
+    """The first three retirement reductions, ``(cnt, alivedel,
+    blocked)`` — int32 ``(W,)`` — without reading ``arr``: the
+    ``retire_reduce`` kernel with its record outputs switched off.  No
+    engine calls it; it is the port of the JAX package's
+    ``retire_scan``."""
+    dev = delivered.device
+    n, w = delivered.shape
+    _check("delivered", delivered, torch.int32, (n, w), dev)
+    _check("crashed", crashed, torch.bool, (n,), dev)
+    _check("min_gate", min_gate, torch.int32, (n,), dev)
+    if not _route(dev):
+        return _ref.retire_scan_ref(delivered, crashed, min_gate)
+    outs = [torch.zeros(w, dtype=torch.int32, device=dev) for _ in range(3)]
+    launch_retire_scan(delivered, crashed, min_gate, *outs)
+    LAUNCHES["retire_scan"] += 1
+    return tuple(outs)
+
+
+def latency_hist(base, delivered, cols=None):
+    """Per-column ``(C, 32)`` int32 delivery-latency histogram: row ``p``
+    of column ``j`` counts in bucket(``delivered[p, cols[j]] -
+    base[j]``) when the row delivered and ``base[j] >= 0`` (the
+    ``obs/hist.py`` buckets).  ``cols`` (int64 ``(C,)`` on the host)
+    picks the plane's columns; it is checked against ``[0, W)`` there,
+    at no wait on the card, and copied to the card, where the kernel
+    reads the columns straight from the plane.  By default ``C = W`` and
+    column ``j`` is plane column ``j``."""
+    dev = delivered.device
+    if delivered.dim() != 2:
+        raise ValueError(f"delivered must be (N, W), got "
+                         f"{tuple(delivered.shape)}")
+    n, w = delivered.shape
+    _check("delivered", delivered, torch.int32, (n, w), dev)
+    c = w
+    if cols is not None:
+        if cols.device.type != "cpu":
+            raise ValueError(f"cols must lie on the host, got {cols.device}")
+        c = cols.shape[0] if cols.dim() else -1
+        _check("cols", cols, torch.int64, (c,), cols.device)
+        if c and not bool(((cols >= 0) & (cols < w)).all()):
+            raise IndexError(f"cols must index the plane's {w} columns, "
+                             f"got values in [{int(cols.min())}, "
+                             f"{int(cols.max())}]")
+    _check("base", base, torch.int32, (c,), dev)
+    if not _route(dev):
+        return _ref.latency_hist_ref(base, delivered, cols)
+    hist = torch.zeros((c, _ref.NB), dtype=torch.int32, device=dev)
+    if c and n:
+        launch_latency_hist(base, delivered,
+                            None if cols is None else cols.to(dev), hist)
+        LAUNCHES["latency_hist"] += 1
+    return hist

@@ -1,7 +1,9 @@
-"""Plain PyTorch versions of the delivery-sweep kernels.
+"""Plain PyTorch versions of the delivery-sweep, retirement and
+latency-histogram kernels.
 
 Each function states, in ordinary tensor operations, what the CUDA
-kernel of the same name in ``csrc/`` computes — same inputs, same
+kernel of the same name in ``csrc/`` computes (``retire_scan`` is the
+``retire_reduce`` kernel with its record outputs off) — same inputs, same
 outputs — and is the counterpart of the JAX package's
 ``repro.core.vecsim.kernels.ref``.  The wrappers in ``ops.py`` run these
 for tensors on the CPU; ``chip_smoke.py`` holds each kernel against its
@@ -18,8 +20,10 @@ from __future__ import annotations
 
 import torch
 
+from ....obs.hist import NB, bucket_index_torch
+
 __all__ = ["deliver_sweep_ref", "fused_sweep_ref", "frontier_sweep_ref",
-           "retire_reduce_ref"]
+           "retire_scan_ref", "retire_reduce_ref", "NB", "latency_hist_ref"]
 
 
 def _scatter_min(arr: torch.Tensor, send: torch.Tensor, tgt: torch.Tensor,
@@ -82,16 +86,42 @@ def frontier_sweep_ref(arr, delivered, adj, delay, gate, do, fwd_ok,
     return arr, flush_sent
 
 
-def retire_reduce_ref(arr, delivered, crashed, min_gate, rounds: int):
-    """(cnt, alivedel, blocked, arrcnt, sumdel) per column: deliveries,
-    deliveries by alive rows, deliveries at or after the row's earliest
-    open gate, first receipts (``arr < rounds``), all int32, and the sum
-    of delivery rounds (int64)."""
+def retire_scan_ref(delivered, crashed, min_gate):
+    """(cnt, alivedel, blocked) per column, int32: the first three
+    outputs of :func:`retire_reduce_ref`, without reading ``arr``."""
     got = delivered >= 0
     cnt = got.sum(dim=0, dtype=torch.int32)
     alivedel = (got & ~crashed[:, None]).sum(dim=0, dtype=torch.int32)
     blocked = (got & (delivered >= min_gate[:, None])).sum(
         dim=0, dtype=torch.int32)
+    return cnt, alivedel, blocked
+
+
+def retire_reduce_ref(arr, delivered, crashed, min_gate, rounds: int):
+    """(cnt, alivedel, blocked, arrcnt, sumdel) per column: deliveries,
+    deliveries by alive rows, deliveries at or after the row's earliest
+    open gate, first receipts (``arr < rounds``), all int32, and the sum
+    of delivery rounds (int64)."""
+    cnt, alivedel, blocked = retire_scan_ref(delivered, crashed, min_gate)
     arrcnt = (arr < rounds).sum(dim=0, dtype=torch.int32)
-    sumdel = torch.where(got, delivered, 0).sum(dim=0, dtype=torch.int64)
+    sumdel = torch.where(delivered >= 0, delivered, 0).sum(
+        dim=0, dtype=torch.int64)
     return cnt, alivedel, blocked, arrcnt, sumdel
+
+
+def latency_hist_ref(base, delivered, cols=None):
+    """``(C, 32)`` int32 per-column latency histogram: row ``p`` of
+    column ``j`` counts in bucket ``bucket_index_torch(delivered[p, m] -
+    base[j])`` (the 15 comparisons of the TPU kernel, not the CUDA
+    kernel's ``31 - __clz``) where ``delivered[p, m] >= 0`` and
+    ``base[j] >= 0``; ``m`` is ``cols[j]`` (int64 indices into the
+    plane's columns, on any device) or ``j`` when ``cols`` is None."""
+    d = (delivered if cols is None
+         else delivered.index_select(1, cols.to(delivered.device)))
+    c = d.shape[1]
+    valid = (d >= 0) & (base >= 0)[None, :]
+    bucket = bucket_index_torch(d.to(torch.int64)
+                                - base.to(torch.int64)[None, :])
+    flat = (torch.arange(c, device=d.device)[None, :] * NB + bucket)[valid]
+    return torch.bincount(flat, minlength=c * NB).view(c, NB).to(
+        torch.int32)

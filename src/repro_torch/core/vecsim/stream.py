@@ -37,6 +37,16 @@ the five ``(W,)`` column reductions of the ``retire_reduce`` kernel;
 retiring columns are recorded from those reductions and reset on the
 device, and only with ``collect="full"`` is their ``delivered`` slice
 copied to the host.
+
+Telemetry (``repro_torch.obs``, threaded in as ``obs=``) hooks in where
+the JAX stepper hooks it: the latency histogram of the retiring app
+columns is folded by the ``latency_hist`` kernel straight from the live
+plane (only its 32 bucket sums reach the host), the flight recorder gets
+an ``index_select`` of only the *sampled* retiring columns, and spans
+wrap each segment's dispatch and retirement.  On the card
+``segment.dispatch`` ends when the last round is enqueued; the wait for
+the device lands in ``segment.retire``, whose first read is the
+segment's stats.
 """
 
 from __future__ import annotations
@@ -48,6 +58,7 @@ import numpy as np
 import torch
 
 from ...backend import resolve_device
+from ...obs.spans import NULL_RECORDER
 from ..types import NetStats
 from . import kernels as kx
 from .scenario import INF, VecScenario
@@ -104,6 +115,8 @@ class WindowedRunResult:
     deliv_round_sum: Optional[np.ndarray] = None
     segments: int = 0               # segments run
     sweeps: int = 0                 # retirement sweeps over live columns
+    # retirement sweeps (and the final drain) that retired app columns
+    app_sweeps: int = 0
 
     @property
     def m_app(self) -> int:
@@ -139,8 +152,11 @@ class ColumnWindow:
     assignment, the live high-water mark, and the segment-sliced
     slot-space schedules.
 
-    The global message-id space is split at ``m_app``: app message
-    ``i`` is id ``i``, link-addition ping ``e`` is id ``m_app + e``.
+    Broadcasts activate from ``bc_round[:m_bc]``: the scenario's whole
+    schedule here, a buffer that grows between segments in the live
+    serving loop's subclass (``live.window.LiveColumnWindow``).  The
+    global message-id space is split at ``m_app_cap``: app message ``i``
+    is id ``i``, link-addition ping ``e`` is id ``m_app_cap + e``.
 
     ``horizon`` mirrors the driver's force-expiry knob: when set,
     :meth:`activate` additionally caps every segment at the earliest
@@ -154,9 +170,11 @@ class ColumnWindow:
         self.scn = scn
         self.w = int(window)
         self.horizon = None if horizon is None else int(horizon)
-        self.m_app = m_app = scn.m_app   # id split: ping e -> m_app + e
+        m_app = scn.m_app
         self.bc_round = scn.bcast_round
         self.bc_origin = scn.bcast_origin
+        self.m_bc = m_app           # broadcasts scheduled so far
+        self.m_app_cap = m_app      # id split: ping e -> m_app_cap + e
         self.next_bc = 0            # first not-yet-activated broadcast
         self.next_add = 0           # first not-yet-activated addition
         self.peak_live = 0
@@ -185,7 +203,7 @@ class ColumnWindow:
         self.cr_pid_s = scn.crash_pid[cr_ord]
 
     def seg_schedule(self, lo: int, hi: int) -> SlotSchedule:
-        b0, b1 = np.searchsorted(self.bc_round, [lo, hi])
+        b0, b1 = np.searchsorted(self.bc_round[: self.m_bc], [lo, hi])
         a0, a1 = np.searchsorted(self.add_round_s, [lo, hi])
         r0, r1 = np.searchsorted(self.rm_round_s, [lo, hi])
         c0, c1 = np.searchsorted(self.cr_round_s, [lo, hi])
@@ -227,7 +245,7 @@ class ColumnWindow:
         self.slot_app[bc_cols] = True
         self.bc_live_slot[bc_ids] = bc_cols
         add_idx = self.add_ord[a0: a0 + na_a]
-        self.slot_msg[add_cols] = self.m_app + add_idx
+        self.slot_msg[add_cols] = self.m_app_cap + add_idx
         self.slot_birth[add_cols] = self.add_round_s[a0: a0 + na_a]
         self.slot_app[add_cols] = False
         self.add_live_slot[add_idx] = add_cols
@@ -242,7 +260,7 @@ class ColumnWindow:
         tracks the live high-water mark, and with a horizon caps the
         segment at the earliest expiry-due round."""
         b_hi = self.next_bc + int(np.searchsorted(
-            self.bc_round[self.next_bc:], t_end))
+            self.bc_round[self.next_bc: self.m_bc], t_end))
         a_hi = int(np.searchsorted(self.add_round_s, t_end))
         nb, na = b_hi - self.next_bc, a_hi - self.next_add
         if nb or na:
@@ -299,13 +317,23 @@ class ColumnWindow:
 class WindowedStepper:
     """The windowed engine, one segment per :meth:`advance` call
     (activate -> span -> retire); :meth:`finish` drains the live columns
-    and builds the result."""
+    and builds the result.  ``cw`` optionally supplies an externally
+    built window (the live loop passes its growable subclass); ``obs``
+    is the run's :class:`~repro_torch.obs.spans.EngineObs` or None."""
 
     def __init__(self, scn: VecScenario, window: int, device=None,
                  horizon: Optional[int] = None, seg_len: int = 32,
                  snapshot_round: Optional[int] = None,
-                 collect: str = "auto"):
+                 collect: str = "auto",
+                 cw: Optional[ColumnWindow] = None, obs=None):
         self.device = dev = resolve_device(device)
+        self.obs = obs
+        self.hist = obs is not None and obs.histograms
+        self._rec = obs.spans if obs is not None else NULL_RECORDER
+        self._sid = {name: self._rec.name(f"segment.{name}")
+                     for name in ("dispatch", "retire")}
+        # flight recorder: host-side provenance hooks, None when off
+        self._flight = getattr(obs, "flight", None)
         self.w = w = int(window)
         if w < 1:
             raise ValueError("window must be >= 1")
@@ -319,9 +347,12 @@ class WindowedStepper:
         # none can skip the pong/flush phases in every segment
         self.gating = scn.n_adds > 0
 
-        self.cw = ColumnWindow(scn, w, horizon=horizon)
-        self.m_app = scn.m_app
-        self.m_total = scn.m_total
+        self.cw = cw if cw is not None else ColumnWindow(
+            scn, w, horizon=horizon)
+        # the id space is the window's (the live subclass reserves
+        # capacity beyond the scenario's pre-scripted broadcasts)
+        self.m_app = self.cw.m_app_cap
+        self.m_total = self.m_app + scn.n_adds
         n = scn.n
         if collect == "auto":
             collect = ("full" if n * max(self.m_total, 1) <= (1 << 26)
@@ -347,6 +378,7 @@ class WindowedStepper:
         self.t = 0
         self.segments = 0
         self.sweeps = 0
+        self.app_sweeps = 0
         # the last retire_reduce columns, valid until the next span runs
         self._red: Optional[Tuple[np.ndarray, ...]] = None
 
@@ -381,10 +413,10 @@ class WindowedStepper:
                                  "crashed"))
 
     def _record_and_free(self, cols: np.ndarray, by_expiry: np.ndarray,
-                         red) -> None:
+                         red, t_now: Optional[int] = None) -> None:
         """Fold retired columns into the aggregates from the
-        ``retire_reduce`` columns ``red = (cnt, arrcnt, sumdel)`` and
-        recycle them (reset on the device)."""
+        ``retire_reduce`` columns ``red = (cnt, arrcnt, sumdel)``, feed
+        the telemetry, and recycle them (reset on the device)."""
         if not len(cols):
             return
         st, cw, dev = self.st, self.cw, self.device
@@ -396,14 +428,35 @@ class WindowedStepper:
         self.first_receipts += int(arrcnt[cols].sum())
         delivered = st["delivered"]
         if app.any():
-            acols = cols[app]
+            acols, aidx = cols[app], ids[app]
             births = cw.slot_birth[acols].astype(np.int64)
             self.lat_sum += int((sumdel[acols] - cnt[acols] * births).sum())
             self.lat_cnt += int(cnt[acols].sum())
+            self.app_sweeps += 1
             acols_t = torch.from_numpy(acols).to(dev)
+            if self.hist:
+                # latency histogram fold, once per column at retirement,
+                # from the live plane: the base is the column's birth
+                # round (batch) or the live loop's submission round
+                lb = self.obs.latency_base
+                base = (lb[aidx] if lb is not None
+                        else cw.slot_birth[acols]).astype(np.int32)
+                h = kx.latency_hist(torch.from_numpy(base).to(dev),
+                                    delivered, torch.from_numpy(acols))
+                self.obs.add_hist(host(h.sum(dim=0, dtype=torch.int64)))
+            fl = self._flight
+            if fl is not None and fl.open_count:
+                # sampled provenance: the per-receiver delivery rounds of
+                # the retiring *sampled* app columns, before the reset
+                m = fl.sampled_mask(aidx)
+                if m.any():
+                    sel = torch.from_numpy(acols[m]).to(dev)
+                    fl.on_retire(aidx[m],
+                                 host(delivered.index_select(1, sel)),
+                                 self.t if t_now is None else t_now,
+                                 by_expiry[app][m])
             st["ever_del"] |= (delivered.index_select(1, acols_t)
                                >= 0).any(dim=1)
-            aidx = ids[app]
             orig = torch.from_numpy(
                 cw.bc_origin[aidx].astype(np.int64)).to(dev)
             self.bcast_done[aidx] = host(delivered[orig, acols_t] >= 0)
@@ -453,8 +506,16 @@ class WindowedStepper:
                                  ("ping", ping)):
                     self.st[key].copy_(torch.from_numpy(val))
             done |= by_exp
+        fl = self._flight
+        if fl is not None and fl.open_count:
+            blk = np.nonzero(live & blocked & ~done)[0]
+            if len(blk):
+                bids = slot_msg[blk]
+                m = fl.sampled_mask(bids)
+                if m.any():
+                    fl.on_blocked(bids[m], t_now)
         cols = np.nonzero(done)[0]
-        self._record_and_free(cols, by_exp[cols], self._red)
+        self._record_and_free(cols, by_exp[cols], self._red, t_now)
         return len(cols)
 
     def advance(self) -> int:
@@ -468,15 +529,32 @@ class WindowedStepper:
         t_end = min(t + self.seg_len, self.rounds)
         if self.snapshot_round is not None and t <= self.snapshot_round:
             t_end = min(t_end, self.snapshot_round + 1)
+        b0 = self.cw.next_bc
         t_end = self.cw.activate(t, t_end)
+        fl = self._flight
+        if fl is not None and self.cw.next_bc > b0:
+            b1 = self.cw.next_bc
+            fl.on_activate(np.arange(b0, b1), self.cw.bc_origin[b0:b1],
+                           self.cw.bc_round[b0:b1])
+        self._rec.begin(self._sid["dispatch"])
         self._run_segment(t, t_end)
+        self._rec.end()
         self.segments += 1
         if (self.snapshot_round is not None
                 and t_end - 1 == self.snapshot_round):
             self.snapshot = state_to_host(self.st)
             self.snapshot["is_app"] = self.cw.slot_app.copy()
             self.snapshot["slot_msg"] = self.cw.slot_msg.copy()
+        self._rec.begin(self._sid["retire"])
         self._retire(t_end)
+        self._rec.end()
+        if self.obs is not None:
+            seg = self.series[t:t_end]
+            self.obs.gauge("piggyback_bytes",
+                           16 * int(seg[:, 1].sum() + seg[:, 3].sum())
+                           + 24 * int(seg[:, 2].sum()))
+            self.obs.gauge("window_occupancy",
+                           int((self.cw.slot_msg >= 0).sum()))
         self.t = t_end
         return t_end
 
@@ -504,13 +582,13 @@ class WindowedStepper:
             snapshot=self.snapshot, peak_live=self.cw.peak_live,
             lat_sum=self.lat_sum, lat_cnt=self.lat_cnt,
             deliv_round_sum=self.deliv_round_sum, segments=self.segments,
-            sweeps=self.sweeps)
+            sweeps=self.sweeps, app_sweeps=self.app_sweeps)
 
 
 def execute_windowed(scn: VecScenario, window: int, device=None,
                      horizon: Optional[int] = None, seg_len: int = 32,
                      snapshot_round: Optional[int] = None,
-                     collect: str = "auto") -> WindowedRunResult:
+                     collect: str = "auto", obs=None) -> WindowedRunResult:
     """Run ``scn`` through a ``window``-column streaming buffer.
 
     ``horizon`` — force-retire columns older than this many rounds
@@ -518,13 +596,14 @@ def execute_windowed(scn: VecScenario, window: int, device=None,
     segment between retirement sweeps.  ``collect`` — ``"full"`` keeps
     the (N, M_total) delivered matrix, ``"aggregate"`` keeps only
     per-message counters, ``"auto"`` picks by size.  ``device`` is the
-    card unless ``"cpu"`` is asked for.
+    card unless ``"cpu"`` is asked for.  ``obs`` is the run's telemetry
+    accumulator (:class:`~repro_torch.obs.spans.EngineObs`) or None.
 
     This is the engine behind ``repro_torch.api.run``; prefer the front
     door (``run(RunSpec(...))``) in new code."""
     stepper = WindowedStepper(scn, window, device=device, horizon=horizon,
                               seg_len=seg_len, snapshot_round=snapshot_round,
-                              collect=collect)
+                              collect=collect, obs=obs)
     while not stepper.done:
         stepper.advance()
     return stepper.finish()

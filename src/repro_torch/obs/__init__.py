@@ -1,0 +1,47 @@
+"""repro_torch.obs — the port's telemetry: its own copy of the JAX
+package's ``repro.obs`` (DESIGN.md §2.10-§2.11), minus the benchmark
+report writer (``report.py``, which comes with the port's benchmarks)
+and the protocol graph metrics (``graphs.py``, which need the exact
+engine).
+
+* **Latency histograms** (``hist.py``): the 32-bucket log contract and
+  the nearest-rank percentile read-out; on the card the per-column
+  histogram of the retiring columns is the ``latency_hist`` kernel.
+* **Trace spans** (``spans.py``): the ring recorder (``SpanRecorder`` /
+  ``NULL_RECORDER``) and the per-run accumulator ``EngineObs``.
+* **Export sinks** (``sinks.py``): schema-versioned JSONL metrics and
+  Perfetto-loadable Chrome trace JSON, behind ``SINKS``.
+* **Flight recorder** (``flight.py``), **causality auditor**
+  (``audit.py``) and **live ops plane** (``ops.py``).
+
+The file formats are the reference's, schema names included, so a file
+either package writes loads in the other.
+"""
+
+from .audit import (AUDIT_MODES, AuditMode, CausalAuditor,
+                    CausalityViolationError, Violation)
+from .flight import (SAMPLERS, FlightRecord, FlightRecorder,
+                     FlightSampler, provenance_trace_events)
+from .hist import (NB, bucket_index_np, bucket_index_torch,
+                   bucket_lower_bounds, hist_np, merge_hists,
+                   percentiles_from_hist)
+from .ops import (OPS_SCHEMA, OPS_SCHEMA_VERSION, OPS_SINKS, OpsPlane,
+                  OpsSink, SloBurn, WatchDashboard, load_ops_jsonl)
+from .sinks import (METRICS_SCHEMA, METRICS_VERSION, SINKS, MetricsSink,
+                    load_metrics_jsonl, write_chrome_trace,
+                    write_metrics_jsonl)
+from .spans import NULL_RECORDER, EngineObs, SpanRecorder
+
+__all__ = [
+    "NB", "bucket_index_np", "bucket_index_torch", "bucket_lower_bounds",
+    "hist_np", "merge_hists", "percentiles_from_hist",
+    "SpanRecorder", "NULL_RECORDER", "EngineObs",
+    "MetricsSink", "SINKS", "METRICS_SCHEMA", "METRICS_VERSION",
+    "write_metrics_jsonl", "load_metrics_jsonl", "write_chrome_trace",
+    "SAMPLERS", "FlightSampler", "FlightRecord", "FlightRecorder",
+    "provenance_trace_events",
+    "AUDIT_MODES", "AuditMode", "CausalAuditor",
+    "CausalityViolationError", "Violation",
+    "OPS_SCHEMA", "OPS_SCHEMA_VERSION", "OPS_SINKS", "OpsSink",
+    "OpsPlane", "SloBurn", "WatchDashboard", "load_ops_jsonl",
+]

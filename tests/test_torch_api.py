@@ -1,6 +1,7 @@
 """The port's front door (``repro_torch.api``) on the CPU against the JAX
-package's ``repro.api.run`` with the numpy backend and telemetry off:
-engine selection, stats, delivered fraction, latency, extras and the
+package's ``repro.api.run`` with the numpy backend, both with telemetry
+at its defaults: engine selection, stats, delivered fraction, latency,
+extras (the latency percentiles of windowed runs included) and the
 oracle; ``RunSpec.from_dict`` on the reference's spec dicts, with the
 not-yet-ported sections refused; and the command line."""
 
@@ -24,7 +25,7 @@ SECTIONS = ("topology", "traffic", "dynamics", "window", "metrics")
 def _pair(**kw):
     """(reference spec, port spec) for the same experiment."""
     sect = {name: kw.pop(name) for name in SECTIONS if name in kw}
-    ref = japi.RunSpec(backend="numpy", obs=japi.ObsSpec(histograms=False),
+    ref = japi.RunSpec(backend="numpy",
                        **{name: getattr(japi, type(v).__name__)(
                            **dataclasses.asdict(v))
                           for name, v in sect.items()}, **kw)
@@ -101,18 +102,24 @@ def test_from_dict_accepts_reference_dicts():
 
 def test_unported_defaults_track_the_reference():
     from repro_torch.api.spec import _LATER_SECTIONS
-    for key, cls in (("shard", japi.ShardSpec), ("live", japi.LiveSpec),
-                     ("obs", japi.ObsSpec)):
-        assert _LATER_SECTIONS[key][1] == dataclasses.asdict(cls()), key
+    assert set(_LATER_SECTIONS) == {"shard"}
+    assert _LATER_SECTIONS["shard"][1] == dataclasses.asdict(
+        japi.ShardSpec())
+    # the ported live and obs sections keep the reference's defaults
+    for port_cls, cls in ((tapi.LiveSpec, japi.LiveSpec),
+                          (tapi.ObsSpec, japi.ObsSpec)):
+        assert dataclasses.asdict(port_cls()) == dataclasses.asdict(cls())
 
 
 @pytest.mark.parametrize("ref_kw,match", [
     (dict(shard=japi.ShardSpec(devices=2), engine="sharded"), "sharded"),
     (dict(shard=japi.ShardSpec(scan="on")), "sharded-engine slice"),
-    (dict(mode="live"), "live-serving slice"),
-    (dict(live=japi.LiveSpec(rate=2.0)), "live-serving slice"),
-    (dict(obs=japi.ObsSpec(provenance=4)), "telemetry slice"),
-    (dict(obs=japi.ObsSpec(histograms=True)), "telemetry slice"),
+    (dict(mode="live", engine="sharded"), "sharded-engine slice"),
+    (dict(mode="live", shard=japi.ShardSpec(devices=4)),
+     "sharded-engine slice"),
+    (dict(shard=japi.ShardSpec(profile=True)), "sharded-engine slice"),
+    (dict(mode="live", metrics=japi.MetricsSpec(crossval=True)),
+     "exact-engine slice"),
     (dict(metrics=japi.MetricsSpec(crossval=True)), "exact-engine slice"),
     (dict(protocol="vc"), "vector-clock"),
     (dict(engine="exact"), "exact-engine slice"),
