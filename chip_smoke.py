@@ -45,11 +45,47 @@ non-zero:
      window overflows) on the card and on the CPU, with the full
      delivered matrix, the oracle, provenance of every message and the
      audit in fail mode: report, series, histogram, provenance and ops
-     records byte-identical.
+     records byte-identical;
+  8. sharded_churn — the Fig. 7 churn configuration of phase 4 through
+     the sharded engine (``engine="sharded"``, one rank, window
+     M_total = 140, scan auto: live gating keeps every segment on the
+     generic body): full delivery, a clean oracle, the delivered matrix,
+     series and NetStats byte-identical to the windowed engine on the
+     card, slot_frontier launched K times a round and ring_apply K times
+     a round and hop;
+  9. scale — BENCH_scale.json's configuration (N = 1,048,576, k-regular
+     K = 4, max_delay 1, Poisson 4 a round, 512 broadcasts, window 128,
+     seg_len 16, seed 0, histograms off, aggregate collection, scan
+     auto, one rank): full delivery, no expired column, and the counts
+     of BENCH_scale.json (166 rounds, 2,147,483,648 sends, 536,870,912
+     deliveries, peak 116 live columns, mean latency 9.877 rounds), with
+     the engine wall, steady sends/s, fast and generic segments, the
+     segment spans and peak device memory;
+ 10. scale_scan_off — the same with ``scan="off"``: every round through
+     the generic body, so the two sharded kernels run at N = 2^20; its
+     series and aggregates byte-identical to phase 9's;
+ 11. the sharded kernels — slot_frontier (gating on and off) and
+     ring_apply byte-equal to their plain versions on small random
+     inputs (odd and single-column windows, an all-INF plane, duplicate
+     targets, a second shard's offset with half the targets dropped)
+     and on the inputs phases 8 and 10 gave them, timed, with
+     ``scatter_reduce_(..., "amin")`` as ring_apply's library yardstick;
+ 12. sharded parity — the sharded engine on the card and on the CPU at
+     one rank: every scenario builder at N = 256 with scan on and off
+     and the full delivered matrix, and an N = 1,024 bursty/defer live
+     run with provenance and the audit in fail mode: byte-identical.
 
-Then the kernels line, the card's name and power limit, and as the last
-line ``{"ok": true, "device": {...}}``.  Needs one CUDA card; exits
-non-zero without one.
+Then the kernels line (all eight kernels), the card's name and power
+limit, and as the last line ``{"ok": true, "device": {...}}``.  Needs
+one CUDA card; exits non-zero without one.
+
+    python3 chip_smoke.py --ranks 4
+
+runs only the multi-card check instead: phases 8, 9 and 10's
+configurations at one rank in this process and then over 2 and over the
+given number of ranks, which ``repro_torch.api.run`` starts itself
+(NCCL, one card a rank), each byte-identical to the one-rank run.  It
+needs that many cards.
 """
 
 from __future__ import annotations
@@ -70,19 +106,29 @@ CORE_OPS_PER_S = 67e12
 
 SUSTAINED_MESSAGES = 1_000_000
 SERVE_MESSAGES = 200_000
+# the device type the main-path runs must report
+CARD = "cuda"
 
 
 def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import torch
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import numpy as np
+    if argv:
+        if len(argv) != 2 or argv[0] != "--ranks" or int(argv[1]) < 2:
+            print("usage: chip_smoke.py [--ranks N>=2]", file=sys.stderr)
+            return 2
+        ranks_phase(torch, np, int(argv[1]))
+        _finish(torch)
+        return 0
 
     from repro_torch.backend import resolve_device
     from repro_torch.core.vecsim.kernels import _build
@@ -122,10 +168,33 @@ def main() -> int:
     # -- 7. live parity, card vs CPU ----------------------------------- #
     live_parity_phase(np)
     launches["retire_scan"] = sum(scans)
+    # -- 8-10. the sharded engine: churn, scale, scale with scan off --- #
+    print(json.dumps({"phase": "devices",
+                      "cuda_device_count": torch.cuda.device_count()}),
+          flush=True)
+    shard_calls = _shard_ops()
+    captured = {}
+    churn = sharded_churn_phase(torch, np, captured)
+    scale = scale_phase(torch)
+    scale_off = scale_scan_off_phase(torch, np, scale, captured)
+    for name in ("slot_frontier", "ring_apply"):
+        launches[name] = churn[name] + scale_off[name]
+    # -- 11. the sharded kernels against their plain versions ---------- #
+    check_shard_small(torch, np, dev, shard_calls)
+    entries += check_shard_main_path(torch, shard_calls, captured)
+    captured.clear()
+    # -- 12. sharded parity, card vs CPU ------------------------------ #
+    sharded_parity_phase(np)
 
     for e in entries:
         e["launches"] = launches[e["name"]]
     print(json.dumps({"kernels": entries}), flush=True)
+    _finish(torch)
+    return 0
+
+
+def _finish(torch) -> None:
+    """The card's name and power limit, then the last line."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -134,7 +203,6 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
-    return 0
 
 
 # --------------------------------------------------------------------- #
@@ -166,7 +234,22 @@ def _random_inputs(torch, np, rng, n, w, k, dev):
         fwd_ok=t(rng.random((n, k)) < 0.6, torch.bool),
         min_gate=t(np.where(rng.random(n) < 0.3, rng.integers(0, 15, n), INF),
                    torch.int32),
-        rounds=22)
+        rounds=22,
+        # slot_frontier: one link slot's tables
+        gate_k=t(np.where(rng.random(n) < 0.5, rng.integers(0, 15, n), -1),
+                 torch.int32),
+        delay_k=t(rng.integers(1, 4, n), torch.int32),
+        do_k=t(rng.random(n) < 0.5, torch.bool),
+        fwd_k=t(rng.random(n) < 0.6, torch.bool),
+        gating=True,
+        # ring_apply: the second shard of two (off = n), targets in
+        # [0, 2n): about half are dropped, the rest often coincide
+        dest=t(np.where(rng.random((n, w)) < 0.5, rng.integers(0, 40, (n, w)),
+                        INF), torch.int32),
+        vals=t(np.where(rng.random((n, w)) < 0.5, rng.integers(2, 40, (n, w)),
+                        INF), torch.int32),
+        tgt=t(rng.integers(0, 2 * n, n), torch.int32),
+        off=n)
 
 
 def _ops():
@@ -230,6 +313,27 @@ def _ops():
     }
 
 
+def _shard_ops():
+    """The ``_ops`` entries of the sharded engine's two kernels."""
+    import torch
+    from repro_torch.core.vecsim.kernels import ops, ref
+
+    def frontier_out(inp):
+        d = inp["delivered"]
+        return [torch.empty_like(d),
+                torch.zeros((), dtype=torch.int32, device=d.device)]
+
+    return {
+        "slot_frontier": (ops.slot_frontier, ref.slot_frontier_ref,
+                          ("delivered", "gate_k", "delay_k", "do_k", "fwd_k",
+                           "is_app", "t", "gating"), (),
+                          ops.launch_slot_frontier, frontier_out),
+        "ring_apply": (ops.ring_apply, ref.ring_apply_ref,
+                       ("dest", "vals", "tgt", "off"), ("dest",),
+                       ops.launch_ring_apply, None),
+    }
+
+
 def _call(torch, fn, names, inputs, inplace):
     """Call ``fn`` on fresh copies of the arguments it writes."""
     args = [inputs[k].clone() if k in inplace else inputs[k] for k in names]
@@ -290,11 +394,29 @@ def _bound(torch, name, inp, plain_out):
     cell the output depends on is read once, each changed cell written
     once, both counted in whole 32-byte sectors; the (N, K) tables only
     for rows that use them."""
+    if name == "ring_apply":
+        # tgt, the vals cells of owned rows, and each 32-byte dest sector
+        # a sent value lowers, read and written
+        n, w = inp["dest"].shape
+        tl = inp["tgt"].to(torch.int64) - inp["off"]
+        owned = int(((tl >= 0) & (tl < n)).sum())
+        changed = plain_out != inp["dest"]
+        nbytes = 4 * n + 4 * w * owned + 64 * _sectors(torch, changed)
+        ops = 3 * w * owned
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / CORE_OPS_PER_S * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                     else "operations")
     n, w = inp["delivered"].shape
     cells = n * w
     k = inp["adj"].shape[1] if "adj" in inp else 0
     d, t = inp["delivered"], inp.get("t")
-    if name in ("fused_sweep", "deliver_sweep"):
+    if name == "slot_frontier":
+        # read delivered and write vals, 8 bytes a cell, plus the row
+        # tables, is_app and the count
+        nbytes = 8 * cells + 10 * n + w + 4
+        ops = 6 * cells
+    elif name in ("fused_sweep", "deliver_sweep"):
         # arr decides a cell only while it is undelivered on a live row
         need_arr = (d < 0) & ~inp["crashed"][:, None]
         d_out = plain_out[-3]
@@ -367,7 +489,7 @@ def _capture(torch, calls, wanted):
 
 def check_small(torch, np, dev):
     """Every kernel against its plain version on small random inputs."""
-    calls = _ops()
+    calls = {**_ops(), **_shard_ops()}
     # small random inputs: odd windows, ragged tiles, one column, a tall
     # grid (more than 65,535 row blocks), and an all-retired window
     rng = np.random.default_rng(20260)
@@ -493,53 +615,90 @@ def check_main_path(torch):
     # retire_scan on retire_reduce's inputs (no engine calls it)
     store["retire_scan"] = store["retire_reduce"]
 
-    entries = []
-    for name, (kernel, plain, names, inplace, launch, outs) in calls.items():
-        inp = store[name]
-        got = _call(torch, kernel, names, inp, inplace)
-        want = plain(*[inp[k] for k in names])
-        err = _max_err(torch, got, want)
-        if err:
-            raise AssertionError(f"{name} differs from its plain version "
-                                 f"at the main-path shape: max |err| {err}")
-        bound_ms, bound_by = _bound(torch, name, inp, want)
-        ms = _time_ms(torch, launch, names, inp, inplace, 20, outs)
-        wrapper_ms = _time_ms(torch, kernel, names, inp, inplace, 20)
-        plain_ms = _time_ms(torch, plain, names, inp, (), 5)
-        ms2 = _time_ms(torch, launch, names, inp, inplace, 20, outs)
-        entry = dict(
-            name=name, route="cuda", source=f"{KSRC}/{SOURCES[name]}",
-            replaces=f"{TPU_KERNELS}:{TPU_LINES[name]}", launches=None,
-            max_abs_err=err, ms=min(ms, ms2), plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-            shape=list(inp["delivered"].shape),
-            k=(inp["adj"].shape[1] if "adj" in inp else None),
-            ms_repeats=[ms, ms2], wrapper_ms=wrapper_ms)
-        if name == "latency_hist":
-            entry["cols"] = int(inp["cols"].shape[0])
-        if name == "fused_sweep":
-            # the same plane pass without the forward scatter: the
-            # deliver_sweep kernel on fused_sweep's inputs
-            _, _, dnames, dinplace, dlaunch, douts = calls["deliver_sweep"]
-            entry["plane_pass_ms"] = _time_ms(torch, dlaunch, dnames, inp,
-                                              dinplace, 20, douts)
-        emit("kernel", **entry)
-        entries.append(entry)
-        del inp, got, want
+    entries = [_entry(torch, name, call, store[name], calls)
+               for name, call in calls.items()]
     store.clear()
     torch.cuda.empty_cache()
     return entries
 
 
+def _entry(torch, name, call, inp, calls=None):
+    """The kernels-line entry of ``name`` on the inputs ``inp``: checked
+    against its plain version, timed (bare launch, wrapper, plain) and
+    bounded."""
+    kernel, plain, names, inplace, launch, outs = call
+    got = _call(torch, kernel, names, inp, inplace)
+    want = plain(*[inp[k] for k in names])
+    err = _max_err(torch, got, want)
+    if err:
+        raise AssertionError(f"{name} differs from its plain version "
+                             f"at the main-path shape: max |err| {err}")
+    plain_out = want[0] if name == "slot_frontier" else want
+    bound_ms, bound_by = _bound(torch, name, inp, plain_out)
+    ms = _time_ms(torch, launch, names, inp, inplace, 20, outs)
+    wrapper_ms = _time_ms(torch, kernel, names, inp, inplace, 20)
+    plain_ms = _time_ms(torch, plain, names, inp, (), 5)
+    ms2 = _time_ms(torch, launch, names, inp, inplace, 20, outs)
+    plane = inp["dest"] if name == "ring_apply" else inp["delivered"]
+    entry = dict(
+        name=name, route="cuda", source=f"{KSRC}/{SOURCES[name]}",
+        replaces=f"{TPU_KERNELS}:{TPU_LINES[name]}", launches=None,
+        max_abs_err=err, ms=min(ms, ms2), plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        shape=list(plane.shape),
+        k=(inp["adj"].shape[1] if "adj" in inp else None),
+        ms_repeats=[ms, ms2], wrapper_ms=wrapper_ms)
+    if name == "latency_hist":
+        entry["cols"] = int(inp["cols"].shape[0])
+    if name == "fused_sweep":
+        # the same plane pass without the forward scatter: the
+        # deliver_sweep kernel on fused_sweep's inputs
+        _, _, dnames, dinplace, dlaunch, douts = calls["deliver_sweep"]
+        entry["plane_pass_ms"] = _time_ms(torch, dlaunch, dnames, inp,
+                                          dinplace, 20, douts)
+    if name == "slot_frontier":
+        entry["gating"] = bool(inp["gating"])
+        entry["flushed"] = int(want[1])
+    if name == "ring_apply":
+        entry["library_ms"] = _library_ring_apply_ms(torch, inp, want)
+        entry["off"] = int(inp["off"])
+    emit("kernel", **entry)
+    return entry
+
+
+def _library_ring_apply_ms(torch, inp, want):
+    """The time of the one PyTorch call that computes ring_apply at one
+    rank, ``dest.scatter_reduce_(0, idx, vals, "amin")`` with every
+    target owned; rows without a target (-1, an empty slot) send only
+    INF, so they are pointed at row 0, where min with INF changes
+    nothing.  Its result is held against the kernel's."""
+    dest, vals, tgt = inp["dest"], inp["vals"], inp["tgt"]
+    n, w = dest.shape
+    assert inp["off"] == 0 and bool((tgt < n).all())
+    assert bool((vals[tgt < 0] == INF).all())
+    idx = tgt.to(torch.int64).clamp(min=0)[:, None].expand(n, w).contiguous()
+    lib = dest.clone().scatter_reduce_(0, idx, vals, reduce="amin")
+    if not torch.equal(lib, want):
+        raise AssertionError("scatter_reduce_ differs from ring_apply")
+
+    def library(d, v, i):
+        d.scatter_reduce_(0, i, v, reduce="amin")
+    return _time_ms(torch, library, ("dest", "vals", "idx"),
+                    dict(dest=dest, vals=vals, idx=idx), ("dest",), 20)
+
+
 TPU_LINES = {"fused_sweep": 121, "deliver_sweep": 75, "frontier_sweep": 139,
-             "retire_reduce": 178, "retire_scan": 161, "latency_hist": 203}
+             "retire_reduce": 178, "retire_scan": 161, "latency_hist": 203,
+             "slot_frontier": 225, "ring_apply": 246}
 SOURCES = {"fused_sweep": "fused_sweep.cu",
            "deliver_sweep": "deliver_sweep.cu",
            "frontier_sweep": "frontier_sweep.cu",
            "retire_reduce": "retire_reduce.cu",
            # retire_scan is retire_reduce.cu with its record outputs off
            "retire_scan": "retire_reduce.cu",
-           "latency_hist": "latency_hist.cu"}
+           "latency_hist": "latency_hist.cu",
+           "slot_frontier": "slot_frontier.cu",
+           "ring_apply": "ring_apply.cu"}
 
 
 # --------------------------------------------------------------------- #
@@ -806,11 +965,11 @@ def live_parity_phase(np):
              identical=True, seconds=time.perf_counter() - t0)
 
 
-def parity_live_spec(case, device, ops_out):
+def parity_live_spec(case, device, ops_out, engine="windowed"):
     from repro_torch.api import (LiveSpec, MetricsSpec, ObsSpec, RunSpec,
                                  TopologySpec, WindowSpec)
     return RunSpec(
-        protocol="pc", mode="live", engine="windowed", n=1024, seed=4,
+        protocol="pc", mode="live", engine=engine, n=1024, seed=4,
         device=device,
         topology=TopologySpec(kind="kregular", k=4, max_delay=1),
         window=WindowSpec(window=case["window"], seg_len=8, collect="full"),
@@ -849,6 +1008,391 @@ def parity_phase(np):
         assert gpu.extras == cpu.extras, name
         emit("parity", case=name, rounds=gpu.rounds, engine=gpu.engine,
              identical=True, seconds=time.perf_counter() - t0)
+
+
+# --------------------------------------------------------------------- #
+# Phases 8-12: the sharded engine
+# --------------------------------------------------------------------- #
+SCALE_N = 1 << 20
+# BENCH_scale.json: the counts the exact engine must reproduce
+SCALE_COUNTS = dict(rounds=166, sends=2_147_483_648, deliveries=536_870_912,
+                    peak_live=116, mean_latency_rounds=9.877)
+
+
+def sharded_churn_spec(engine: str, device=None):
+    """Phase 4's Fig. 7 churn configuration (benchmarks/bench_fig7.py,
+    delay 3) on a streaming engine: one rank, window M_total = 140
+    columns, the full delivered matrix, the oracle."""
+    from dataclasses import replace
+
+    from repro_torch.api import MetricsSpec, ObsSpec, ShardSpec, WindowSpec
+    base = gated_spec(device=device)
+    shard = (ShardSpec(devices=1, profile=True) if engine == "sharded"
+             else ShardSpec())
+    return replace(base, engine=engine, shard=shard,
+                   window=WindowSpec(window=12 + 128, collect="full"),
+                   metrics=MetricsSpec(oracle=True), obs=ObsSpec(spans=True))
+
+
+def scale_spec(scan: str, device=None):
+    """BENCH_scale.json's configuration (benchmarks/bench_scale.py) at
+    one rank, with the segment spans and the per-segment profile on."""
+    from repro_torch.api import (ObsSpec, RunSpec, ShardSpec, TopologySpec,
+                                 TrafficSpec, WindowSpec)
+    return RunSpec(
+        protocol="pc", engine="sharded", n=SCALE_N, seed=0, device=device,
+        shard=ShardSpec(devices=1, scan=scan, profile=True),
+        topology=TopologySpec(kind="kregular", k=4, max_delay=1),
+        traffic=TrafficSpec(kind="poisson", rate=4.0, messages=512),
+        window=WindowSpec(window=128, seg_len=16, collect="aggregate"),
+        obs=ObsSpec(histograms=False, spans=True))
+
+
+def _span_ms(rep):
+    out = {}
+    for ev in rep.obs.spans.events():
+        if ev["kind"] == "span":
+            out[ev["name"]] = out.get(ev["name"], 0.0) + ev["dur_ns"] / 1e6
+    return out
+
+
+def sharded_churn_phase(torch, np, captured):
+    """Phase 8; keeps the inputs of one slot_frontier and one ring_apply
+    call (slot 1 of the round after the last churn round) in
+    ``captured``."""
+    from repro_torch.api import build_scenario, run
+    from repro_torch.core.vecsim import kernels as kx
+    spec = sharded_churn_spec("sharded")
+    scn = build_scenario(spec)
+    k = scn.k
+    call = k * (int(scn.add_round[-1]) + 1) + 2
+    store, undo = _capture(torch, _shard_ops(),
+                           {"slot_frontier": call, "ring_apply": call})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kx.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        rep = run(spec)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        undo()
+    launches = dict(kx.LAUNCHES)
+    captured["churn"] = store
+    res = rep.result
+    assert rep.engine == "sharded" and rep.device.startswith(CARD)
+    assert res.n_devices == 1 and res.scan == "on"
+    assert rep.delivered_frac == 1.0, rep.delivered_frac
+    assert rep.oracle.ok, rep.oracle.summary()
+    assert res.fast_segments == 0 and res.generic_segments == res.segments
+    world = res.n_devices
+    assert launches["slot_frontier"] == k * rep.rounds, (launches, k)
+    assert launches["ring_apply"] == k * rep.rounds * world, launches
+    assert launches["deliver_sweep"] == rep.rounds, launches
+    assert launches["latency_hist"] == res.app_sweeps > 0, launches
+    assert launches["retire_reduce"] >= 1, launches
+    assert launches["fused_sweep"] == launches["frontier_sweep"] == 0
+    # the windowed engine on the card, same scenario: byte-identical
+    win = run(sharded_churn_spec("windowed"))
+    assert win.engine == "windowed"
+    np.testing.assert_array_equal(res.delivered, win.result.delivered)
+    np.testing.assert_array_equal(res.series, win.result.series)
+    assert res.stats == win.result.stats
+    for key in ("deliv_count", "deliv_round_sum", "bcast_done", "expired"):
+        np.testing.assert_array_equal(getattr(res, key),
+                                      getattr(win.result, key), key)
+    emit("sharded_churn", n=rep.n, k=k, window=rep.window,
+         messages=rep.m_app, adds=scn.n_adds, rounds=rep.rounds,
+         segments=res.segments, run_wall_seconds=wall,
+         engine_wall_seconds=rep.wall_seconds,
+         windowed_engine_wall_seconds=win.wall_seconds,
+         delivered_frac=rep.delivered_frac,
+         mean_latency_rounds=rep.mean_latency, pongs=rep.extras["pongs"],
+         oracle=rep.oracle.summary(), identical_to_windowed=True,
+         profile={key: rep.extras["profile_" + key] for key in (
+             "stage_s", "dispatch_s", "block_s", "retire_s")},
+         span_host_ms=_span_ms(rep),
+         windowed_span_host_ms=_span_ms(win),
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         launches={name: launches[name] for name in (
+             "slot_frontier", "ring_apply", "deliver_sweep",
+             "retire_reduce", "latency_hist")})
+    return {name: launches[name] for name in ("slot_frontier", "ring_apply")}
+
+
+def _scale_run(torch, spec):
+    from dataclasses import replace
+
+    from repro_torch.api import build_scenario, run
+    from repro_torch.core.vecsim import kernels as kx
+    t0 = time.perf_counter()
+    scn = build_scenario(spec)
+    build_s = time.perf_counter() - t0
+    spec = replace(spec, scenario=scn)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kx.reset_launches()
+    t0 = time.perf_counter()
+    rep = run(spec)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return rep, dict(kx.LAUNCHES), build_s, wall
+
+
+def _scale_emit(torch, phase, rep, launches, build_s, wall):
+    res = rep.result
+    c = SCALE_COUNTS
+    assert rep.engine == "sharded" and res.n_devices == 1
+    assert rep.n == SCALE_N
+    assert rep.delivered_frac == 1.0, rep.delivered_frac
+    assert int(res.expired.sum()) == 0
+    assert rep.rounds == c["rounds"], rep.rounds
+    assert rep.stats.sent_messages == c["sends"], rep.stats
+    assert rep.stats.deliveries == c["deliveries"], rep.stats
+    assert res.peak_live == c["peak_live"], res.peak_live
+    assert round(rep.mean_latency, 3) == c["mean_latency_rounds"], \
+        rep.mean_latency
+    # steady state: every segment after the first
+    prof = res.seg_profile
+    seg_s = [p["stage_s"] + p["dispatch_s"] + p["block_s"] + p["retire_s"]
+             for p in prof]
+    steady_sends = int(sum(res.series[p["lo"]:p["hi"], 1:4].sum()
+                           for p in prof[1:]))
+    emit(phase, n=rep.n, k=4, window=rep.window, seg_len=16,
+         messages=rep.m_app, rounds=rep.rounds, scan=res.scan,
+         segments=res.segments, fast_segments=res.fast_segments,
+         generic_segments=res.generic_segments,
+         scenario_build_seconds=build_s, run_wall_seconds=wall,
+         engine_wall_seconds=rep.wall_seconds,
+         sends=rep.stats.sent_messages,
+         sends_per_sec=rep.stats.sent_messages / rep.wall_seconds,
+         steady_sends=steady_sends, steady_seconds=sum(seg_s[1:]),
+         steady_sends_per_sec=steady_sends / sum(seg_s[1:]),
+         first_segment_seconds=seg_s[0],
+         deliveries=rep.stats.deliveries, delivered_frac=rep.delivered_frac,
+         mean_latency_rounds=rep.mean_latency, peak_live=res.peak_live,
+         expired=int(res.expired.sum()),
+         profile={key: rep.extras["profile_" + key] for key in (
+             "stage_s", "dispatch_s", "block_s", "retire_s")},
+         span_host_ms=_span_ms(rep),
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         launches={name: launches[name] for name in (
+             "slot_frontier", "ring_apply", "deliver_sweep", "retire_reduce",
+             "latency_hist")})
+
+
+def scale_phase(torch):
+    """Phase 9: returns the report for phase 10's comparison."""
+    rep, launches, build_s, wall = _scale_run(torch, scale_spec("auto"))
+    res = rep.result
+    assert res.scan == "on" and res.fast_segments == res.segments
+    assert launches["slot_frontier"] == launches["ring_apply"] == 0
+    assert launches["retire_reduce"] >= 1
+    _scale_emit(torch, "scale", rep, launches, build_s, wall)
+    return rep
+
+
+def scale_scan_off_phase(torch, np, scale, captured):
+    """Phase 10: keeps the inputs of slot 1's slot_frontier and
+    ring_apply calls of round 40 in ``captured``."""
+    call = 4 * 40 + 2
+    store, undo = _capture(torch, _shard_ops(),
+                           {"slot_frontier": call, "ring_apply": call})
+    try:
+        rep, launches, build_s, wall = _scale_run(torch, scale_spec("off"))
+    finally:
+        undo()
+    captured["scale"] = store
+    res, ref = rep.result, scale.result
+    assert res.scan == "off" and res.fast_segments == 0
+    assert launches["slot_frontier"] == 4 * rep.rounds, launches
+    assert launches["ring_apply"] == 4 * rep.rounds, launches
+    assert launches["deliver_sweep"] == rep.rounds, launches
+    assert launches["retire_reduce"] >= 1, launches
+    np.testing.assert_array_equal(res.series, ref.series)
+    assert res.stats == ref.stats
+    for key in ("deliv_count", "deliv_round_sum", "bcast_done", "expired"):
+        np.testing.assert_array_equal(getattr(res, key), getattr(ref, key),
+                                      key)
+    assert (res.peak_live, res.lat_sum, res.lat_cnt) == \
+        (ref.peak_live, ref.lat_sum, ref.lat_cnt)
+    _scale_emit(torch, "scale_scan_off", rep, launches, build_s, wall)
+    return {name: launches[name] for name in ("slot_frontier", "ring_apply")}
+
+
+def check_shard_small(torch, np, dev, calls):
+    """slot_frontier with gating off on phase 2's random inputs, and
+    ring_apply at offset 0, on an all-INF plane and on targets that
+    mostly coincide (phase 2 ran both with gating on and at a second
+    shard's offset)."""
+    rng = np.random.default_rng(20262)
+    cases = 0
+    for n, w in ((16, 9), (24, 7), (8, 1), (12, 11), (100, 77), (64, 128),
+                 (600_000, 3)):
+        inp = _random_inputs(torch, np, rng, n, w, 3, dev)
+        variants = [dict(gating=False), dict(off=0, tgt=inp["tgt"] // 2),
+                    dict(vals=torch.full_like(inp["vals"], INF)),
+                    dict(tgt=torch.from_numpy(rng.integers(
+                        n, n + 3, n).astype(np.int32)).to(dev))]
+        for var in variants:
+            case = dict(inp, **var)
+            for name, (kernel, plain, names, inplace, *_) in calls.items():
+                got = _call(torch, kernel, names, case, inplace)
+                want = plain(*[case[k] for k in names])
+                err = _max_err(torch, got, want)
+                if err:
+                    raise AssertionError(
+                        f"{name} differs from its plain version on "
+                        f"({n}, {w}) with {sorted(var)}: max |err| {err}")
+            cases += 1
+    torch.cuda.synchronize()
+    emit("kernels_shard_small", cases=cases, kernels=sorted(calls),
+         variants=["gating off", "offset 0", "all-INF vals",
+                   "coinciding targets"], max_abs_err=0)
+
+
+def check_shard_main_path(torch, calls, captured):
+    """The sharded kernels on the inputs phases 8 (N = 50,000, W = 140,
+    K = 17) and 10 (N = 2^20, W = 128, K = 4) gave them; the churn
+    shape is the kernels line's entry, the scale shape rides in it."""
+    entries = []
+    for name, call in calls.items():
+        entry = _entry(torch, name, call, captured["churn"][name])
+        entry["at_scale"] = {
+            key: v for key, v in _entry(
+                torch, name, call, captured["scale"][name]).items()
+            if key in ("shape", "ms", "wrapper_ms", "plain_ms", "bound_ms",
+                       "bound_by", "library_ms", "max_abs_err", "flushed")}
+        entries.append(entry)
+    torch.cuda.empty_cache()
+    return entries
+
+
+def _port_builders():
+    """The scenario builders of tests/vecsim_cases.py, from the port."""
+    from repro_torch.core.vecsim import scenario as sc
+    return {
+        "static": lambda seed, n: sc.static_scenario(seed, n),
+        "link_add": lambda seed, n: sc.link_add_scenario(seed, n),
+        "churn": lambda seed, n: sc.churn_scenario(seed, n),
+        "crash": lambda seed, n: sc.crash_scenario(seed, n),
+        "waves": lambda seed, n: sc.churn_wave_scenario(seed, n, waves=2),
+        "partition": lambda seed, n: sc.partition_heal_scenario(
+            seed, max(n, 12), traffic_during_partition=bool(seed % 2)),
+        "sustained_kreg": lambda seed, n: sc.sustained_scenario(
+            seed, n, k=5, rate=1.0 + (seed % 3), messages=24,
+            topology="kregular", max_delay=2),
+        "sustained_sw": lambda seed, n: sc.sustained_scenario(
+            seed, n, k=5, rate=2.0, messages=24, topology="smallworld",
+            traffic="bursty", max_delay=2),
+    }
+
+
+def sharded_parity_phase(np):
+    """Phase 12: the sharded engine on the card and on the CPU."""
+    from repro_torch.api import run
+    from repro_torch.core.vecsim.shard import execute_sharded
+    t0 = time.perf_counter()
+    checked = 0
+    for name, build in _port_builders().items():
+        scn = build(5, 256)
+        for scan in ("on", "off"):
+            a, b = (execute_sharded(scn, scn.m_total, device=d, seg_len=16,
+                                    collect="full", scan=scan)
+                    for d in (None, "cpu"))
+            assert a.device.startswith(CARD) and b.device == "cpu"
+            assert a.stats == b.stats, (name, scan)
+            for key in ("delivered", "series", "deliv_count",
+                        "deliv_round_sum", "bcast_done", "expired"):
+                np.testing.assert_array_equal(getattr(a, key),
+                                              getattr(b, key),
+                                              f"{name}/{scan}/{key}")
+            for key in a.state:
+                np.testing.assert_array_equal(a.state[key], b.state[key],
+                                              f"{name}/{scan}/{key}")
+            assert (a.fast_segments, a.peak_live) == \
+                (b.fast_segments, b.peak_live)
+            checked += 1
+    emit("sharded_parity", case="builders_n256", runs=checked,
+         identical=True, seconds=time.perf_counter() - t0)
+    import tempfile
+    t0 = time.perf_counter()
+    case = dict(admission="defer", window=48)
+    with tempfile.TemporaryDirectory() as tmp:
+        gpu, cpu = (run(parity_live_spec(case, d, os.path.join(
+            tmp, f"ops.{d}.jsonl"), engine="sharded")) for d in (None, "cpu"))
+    assert gpu.engine == cpu.engine == "sharded"
+    assert gpu.device.startswith(CARD) and cpu.device == "cpu"
+    da, db = gpu.live.to_dict(), cpu.live.to_dict()
+    for key in ("wall_seconds", "requests_per_sec"):
+        da.pop(key)
+        db.pop(key)
+    assert da == db and gpu.live.ticks == cpu.live.ticks
+    assert gpu.oracle.ok and cpu.oracle.ok
+    assert gpu.live.backpressure_ticks > 0
+    a, b = gpu.result, cpu.result
+    assert a.stats == b.stats
+    for key in ("delivered", "series", "deliv_count", "deliv_round_sum",
+                "bcast_done", "expired"):
+        np.testing.assert_array_equal(getattr(a, key), getattr(b, key), key)
+    np.testing.assert_array_equal(gpu.obs.latency_hist, cpu.obs.latency_hist)
+    assert gpu.obs.flight.export() == cpu.obs.flight.export()
+    assert gpu.extras["audit_violations"] == 0
+    emit("sharded_parity", case="live_bursty_defer_n1024", rounds=gpu.rounds,
+         ticks=gpu.live.ticks_run,
+         backpressure_ticks=gpu.live.backpressure_ticks,
+         provenance_records=len(gpu.obs.flight.completed),
+         audit_pairs_checked=gpu.extras["audit_pairs_checked"],
+         identical=True, seconds=time.perf_counter() - t0)
+
+
+def ranks_phase(torch, np, most: int):
+    """The sharded configurations over 2 and ``most`` ranks (NCCL, one
+    card a rank, started by the front door) against one rank in this
+    process: series, NetStats and per-message aggregates byte-identical,
+    and the delivered matrix and state where collected."""
+    from dataclasses import replace
+
+    from repro_torch.api import run
+    from repro_torch.core.vecsim.shard.mesh import require_cards
+    require_cards(most, torch.device("cuda"))
+    emit("ranks", cuda_device_count=torch.cuda.device_count())
+    churn = sharded_churn_spec("sharded")
+    # the delivered matrix is compared whole, so the oracle adds nothing
+    specs = {"sharded_churn": replace(churn, metrics=replace(
+                 churn.metrics, oracle=False)),
+             "scale": scale_spec("auto"), "scale_scan_off": scale_spec("off")}
+    for name, spec in specs.items():
+        one = run(spec)
+        for world in sorted({2, most}):
+            t0 = time.perf_counter()
+            many = run(replace(spec, shard=replace(spec.shard,
+                                                   devices=world)))
+            wall = time.perf_counter() - t0
+            a, b = one.result, many.result
+            assert many.engine == "sharded" and b.n_devices == world
+            assert many.device.startswith(CARD)
+            np.testing.assert_array_equal(a.series, b.series, name)
+            assert a.stats == b.stats, name
+            for key in ("deliv_count", "deliv_round_sum", "bcast_done",
+                        "expired"):
+                np.testing.assert_array_equal(getattr(a, key),
+                                              getattr(b, key), key)
+            if a.delivered is not None:
+                np.testing.assert_array_equal(a.delivered, b.delivered)
+                for key in a.state:
+                    np.testing.assert_array_equal(a.state[key],
+                                                  b.state[key], key)
+            emit("ranks", case=name, world=world, identical_to_one_rank=True,
+                 rounds=many.rounds, engine_wall_seconds=many.wall_seconds,
+                 one_rank_engine_wall_seconds=one.wall_seconds,
+                 launch_and_run_seconds=wall,
+                 fast_segments=b.fast_segments,
+                 generic_segments=b.generic_segments,
+                 profile={key: many.extras["profile_" + key] for key in (
+                     "stage_s", "dispatch_s", "block_s", "retire_s")},
+                 delivered_frac=many.delivered_frac)
 
 
 if __name__ == "__main__":

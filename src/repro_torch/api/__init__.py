@@ -18,6 +18,15 @@
                                         collect="aggregate"),
                       obs=ObsSpec(provenance=1024, audit="fail")))
 
+    rep = run(RunSpec(n=1 << 20, engine="sharded",
+                      topology=TopologySpec(kind="kregular", k=4,
+                                            max_delay=1),
+                      traffic=TrafficSpec(kind="poisson", rate=4.0,
+                                          messages=512),
+                      window=WindowSpec(window=128, seg_len=16,
+                                        collect="aggregate"),
+                      shard=ShardSpec(devices=1)))
+
 Runs on the card unless ``device="cpu"``; ``python -m repro_torch.api``
 (``--serve`` for live mode) is the command-line form.
 """
@@ -29,10 +38,12 @@ from .registry import (ADMISSION, ARRIVALS, AUDIT, ENGINES, OPS_SINKS,
 from .run import (RunReport, build_live_scenario, build_scenario, run,
                   select_engine)
 from .spec import (DynamicsSpec, LiveSpec, MetricsSpec, ObsSpec, RunSpec,
-                   SpecError, TopologySpec, TrafficSpec, WindowSpec)
+                   ShardSpec, SpecError, TopologySpec, TrafficSpec,
+                   WindowSpec)
 
 __all__ = ["run", "RunReport", "RunSpec", "SpecError", "TopologySpec",
-           "TrafficSpec", "DynamicsSpec", "WindowSpec", "LiveSpec",
+           "TrafficSpec", "DynamicsSpec", "WindowSpec", "ShardSpec",
+           "LiveSpec",
            "MetricsSpec", "ObsSpec", "build_scenario", "build_live_scenario",
            "select_engine", "Registry", "ProtocolEntry", "EngineEntry",
            "ScenarioEntry", "PROTOCOLS", "ENGINES", "TOPOLOGIES", "TRAFFIC",

@@ -11,6 +11,9 @@ rows).  Runs on the card unless ``--device cpu``.
     python -m repro_torch.api --serve --n 1024 --arrivals bursty \\
         --rate 16 --messages 4000 --window 256 --provenance 64 \\
         --audit fail --trace-out serve_trace.json
+    python -m repro_torch.api --device cpu --engine sharded --devices 2 \
+        --n 256 --topology kregular --k 6 --traffic poisson --rate 2 \
+        --messages 30 --window 24 --collect full --oracle
     python -m repro_torch.api --spec experiment.json
     python -m repro_torch.api --list            # registry keys
 """
@@ -75,12 +78,25 @@ def build_parser() -> argparse.ArgumentParser:
     win.add_argument("--seg-len", type=int)
     win.add_argument("--horizon", type=int)
     win.add_argument("--collect", choices=("auto", "full", "aggregate"))
+    sh = ap.add_argument_group("shard")
+    sh.add_argument("--devices", type=int,
+                    help="ranks for engine 'sharded' (default: the "
+                         "process group's, 1 without one); above 1 the "
+                         "run starts them itself, one card a rank (NCCL) "
+                         "or CPU ranks over gloo with --device cpu")
+    sh.add_argument("--scan", choices=("auto", "on", "off"),
+                    help="segment loop for engine 'sharded': deferred "
+                         "exchange, fused reduction and fast body (on, "
+                         "the auto default) or per-round stepping (off)")
+    sh.add_argument("--profile", action="store_true", default=None,
+                    help="record per-segment host times (engine "
+                         "'sharded'; totals land in the report extras)")
     lv = ap.add_argument_group("live serving (mode='live')")
     lv.add_argument("--serve", action="store_true",
                     help="run as an open-loop service (mode='live'): an "
                          "arrival process feeds a bounded ingest queue, "
                          "an admission policy micro-batches it into the "
-                         "windowed engine each segment; --rate/"
+                         "streaming engine each segment; --rate/"
                          "--messages then describe the offered load")
     lv.add_argument("--arrivals", choices=sorted(ARRIVALS.keys()),
                     help="open-loop arrival process (live mode)")
@@ -154,6 +170,8 @@ _FLAG_MAP = [
     ("n_rms", "dynamics", "n_rms"), ("n_crashes", "dynamics", "n_crashes"),
     ("window", "window", "window"), ("seg_len", "window", "seg_len"),
     ("horizon", "window", "horizon"), ("collect", "window", "collect"),
+    ("devices", "shard", "devices"), ("scan", "shard", "scan"),
+    ("profile", "shard", "profile"),
     ("arrivals", "live", "arrivals"), ("admission", "live", "admission"),
     ("queue_cap", "live", "queue_cap"),
     ("admit_cap", "live", "per_round_cap"),

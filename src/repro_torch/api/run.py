@@ -6,26 +6,44 @@ engine, executes on the spec's device, and returns a :class:`RunReport`
 — with the telemetry of the spec's ``obs`` section (latency histograms
 and their percentiles in the extras, spans, metrics and trace files,
 provenance and the causality audit).  ``mode="live"`` serves open-loop
-traffic through the windowed engine (:class:`LiveLoop`) instead.
+traffic through a streaming engine (:class:`LiveLoop`) instead.
 
-Engine auto-selection, on one device (the JAX package's DESIGN.md §3.3
-rule without the sharded engine): with ``engine="auto"``,
+Engine auto-selection (the JAX package's DESIGN.md §3.3 rule): with
+``engine="auto"``,
 
-  1. an explicit ``window.window`` selects the streaming windowed engine;
+  1. an explicit ``window.window`` selects a streaming engine — the
+     sharded one when ``shard.devices`` asks for more than one rank,
+     the windowed one otherwise;
   2. otherwise the monolithic vec engine runs iff its two dense
      ``(N, M_total)`` int32 planes fit the spec's memory budget
      (``8·N·M_total <= memory_budget_mb``);
-  3. otherwise the windowed engine runs with
-     ``window = clamp(budget // (8·N), 64, M_total)``.
+  3. otherwise a streaming engine runs with ``window = clamp(D·budget
+     // (8·N), 64, M_total)``: the sharded engine over ``D`` ranks when
+     ``D > 1``, the windowed engine otherwise.  ``D`` is
+     ``shard.devices`` if set, else the running process group's size,
+     else the cards ``torch.cuda.device_count()`` shows (1 on the CPU).
+
+**Ranks.**  A sharded run over ``D > 1`` ranks with no process group
+running starts them itself: ``run`` spawns ``D`` processes
+(``torch.multiprocessing``), NCCL with one card a rank on the card or
+gloo on the CPU, each of which runs the same spec; rank 0's report is
+returned, only rank 0 writes the telemetry files, and a failure on any
+rank raises here.  ``on_tick`` is not called from spawned ranks.
 """
 
 from __future__ import annotations
 
+import datetime
+import os
+import pickle
+import tempfile
 import time
 from dataclasses import dataclass, field, replace
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from ..backend import resolve_device
 from ..core.oracle import OracleReport, check_trace
@@ -33,6 +51,8 @@ from ..core.types import NetStats
 from ..core.vecsim.live import LiveLoop, LiveReport
 from ..core.vecsim.metrics import build_trace
 from ..core.vecsim.scenario import VecScenario
+from ..core.vecsim.shard import execute_sharded
+from ..core.vecsim.shard.mesh import require_cards
 from ..core.vecsim.sim import execute_vec
 from ..core.vecsim.stream import execute_windowed
 from ..obs.audit import CausalAuditor
@@ -55,7 +75,7 @@ class RunReport:
     spec: RunSpec
     engine: str                # engine that actually ran
     device: str                # torch device the engine ran on
-    window: Optional[int]      # live columns (windowed engine only)
+    window: Optional[int]      # live columns (streaming engines only)
     wall_seconds: float
     n: int
     m_app: int
@@ -107,23 +127,50 @@ def build_scenario(spec: RunSpec) -> VecScenario:
     return scn
 
 
-def _auto_window(spec: RunSpec, scn: VecScenario) -> int:
-    """The budget-derived window: ``clamp(budget // (8·N), 64,
-    M_total)`` live columns."""
-    budget = spec.memory_budget_mb * 2 ** 20
+def _auto_window(spec: RunSpec, scn: VecScenario, devices: int = 1) -> int:
+    """The budget-derived window: ``clamp(D·budget // (8·N), 64,
+    M_total)`` live columns — the budget reads per rank, so ``D`` ranks
+    scale the window with them."""
+    budget = devices * spec.memory_budget_mb * 2 ** 20
     return int(min(max(64, budget // (8 * scn.n)), scn.m_total))
+
+
+def _in_group() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def _rank() -> int:
+    return dist.get_rank() if _in_group() else 0
+
+
+def _device_count(spec: RunSpec) -> int:
+    """Ranks a sharded run would use: ``shard.devices`` if set, else the
+    running process group's size, else the cards the card route sees
+    (1 on the CPU route)."""
+    if spec.shard.devices is not None:
+        return spec.shard.devices
+    if _in_group():
+        return dist.get_world_size()
+    if spec.device == "cpu":
+        return 1
+    return torch.cuda.device_count()
 
 
 def select_engine(spec: RunSpec, scn: VecScenario
                   ) -> Tuple[str, Optional[int]]:
-    """Apply the one-device auto-selection rule; explicit engines pass
-    through unchanged (with the spec's window, if any)."""
+    """Apply the auto-selection rule; explicit engines pass through
+    unchanged (with the spec's window, if any)."""
     if spec.engine != "auto":
         return spec.engine, spec.window.window
     if spec.window.window is not None:
+        if (spec.shard.devices or 1) > 1:
+            return "sharded", spec.window.window
         return "windowed", spec.window.window
     if 8 * scn.n * max(scn.m_total, 1) <= spec.memory_budget_mb * 2 ** 20:
         return "vec", None
+    devices = _device_count(spec)
+    if devices > 1:
+        return "sharded", _auto_window(spec, scn, devices=devices)
     return "windowed", _auto_window(spec, scn)
 
 
@@ -169,12 +216,45 @@ def _run_windowed(spec: RunSpec, scn: VecScenario, window: Optional[int],
             extras)
 
 
+def _run_sharded(spec: RunSpec, scn: VecScenario, window: Optional[int],
+                 snapshot_round: Optional[int], device, obs=None):
+    if window is None:
+        # explicit engine="sharded" without a window: the per-rank
+        # budget rule over the ranks the run uses
+        window = _auto_window(spec, scn, devices=_device_count(spec))
+    res = execute_sharded(
+        scn, window, n_devices=spec.shard.devices, device=device,
+        horizon=spec.window.horizon, seg_len=spec.window.seg_len,
+        snapshot_round=snapshot_round, collect=spec.window.collect,
+        scan=spec.shard.scan, profile=spec.shard.profile, obs=obs)
+    extras = _vec_extras(res)
+    extras["peak_live"] = res.peak_live
+    extras["expired_columns"] = int(res.expired.sum())
+    extras["devices"] = res.n_devices
+    extras["scan"] = res.scan
+    if res.seg_profile is not None:
+        # scalar totals; the per-segment list stays on the raw result
+        for key in ("stage_s", "dispatch_s", "block_s", "retire_s"):
+            extras["profile_" + key] = float(
+                sum(p[key] for p in res.seg_profile))
+        extras["profile_segments"] = len(res.seg_profile)
+        extras["profile_fast_segments"] = res.fast_segments
+    return (res, res.stats, res.delivered_frac(), res.mean_latency(),
+            extras)
+
+
 ENGINES.register("vec", EngineEntry(
     "vec", "monolithic vectorized lockstep engine: dense (N, M_total) "
     "planes on the device", _run_vec))
 ENGINES.register("windowed", EngineEntry(
     "windowed", "streaming windowed engine: O(N*window) live-column "
     "planes kept on the device for sustained traffic", _run_windowed))
+ENGINES.register("sharded", EngineEntry(
+    "sharded", "sharded windowed engine: process rows split over "
+    "torch.distributed ranks (ring frontier exchange), one card a rank; "
+    "shard.scan=auto|on|off picks the deferred/fast segment loop or "
+    "per-round stepping, shard.profile=True records per-segment times",
+    _run_sharded))
 
 
 # --------------------------------------------------------------------- #
@@ -187,18 +267,18 @@ def _build_obs(spec: RunSpec, engine_name: str,
     ob = spec.obs
     hist = ob.histograms
     if hist is None:
-        # auto: on wherever an engine can feed it (the windowed
-        # engine's retirement sweeps, and every live run)
-        hist = live or engine_name == "windowed"
+        # auto: on wherever an engine can feed it (the streaming
+        # engines' retirement sweeps, and every live run)
+        hist = live or engine_name in ("windowed", "sharded")
     spans = bool(ob.spans or ob.trace_out is not None)
     flight = None
     if ob.provenance is not None:
-        if not live and engine_name != "windowed":
+        if not live and engine_name not in ("windowed", "sharded"):
             raise SpecError(
                 f"obs.provenance needs a streaming engine (the hooks "
                 f"ride column retirement), but this run resolved to "
                 f"engine={engine_name!r}; set an explicit window or "
-                "engine='windowed'")
+                "engine='windowed'/'sharded'")
         auditor = (CausalAuditor(ob.audit) if ob.audit != "off"
                    else None)
         flight = FlightRecorder(rate=ob.provenance, seed=spec.seed,
@@ -245,6 +325,8 @@ def _metrics_doc(spec: RunSpec, report: "RunReport",
                mode=spec.mode, protocol=spec.protocol, n=report.n,
                m_app=report.m_app, rounds=report.rounds,
                seed=spec.seed)
+    if "devices" in report.extras:
+        run["devices"] = int(report.extras["devices"])
     return dict(
         run=run,
         summary=dict(
@@ -263,7 +345,7 @@ def _metrics_doc(spec: RunSpec, report: "RunReport",
 
 def _write_obs_outputs(spec: RunSpec, report: "RunReport") -> None:
     ob, obs = spec.obs, report.obs
-    if obs is None:
+    if obs is None or _rank() != 0:
         return
     if ob.metrics_out is not None:
         SINKS.get(ob.sink).write(ob.metrics_out,
@@ -297,35 +379,39 @@ def build_live_scenario(spec: RunSpec) -> VecScenario:
 
 def _select_live_engine(spec: RunSpec, scn: VecScenario
                         ) -> Tuple[str, int]:
-    """Engine selection for live mode: the windowed engine (the only
-    streaming engine of the port; ``validate`` refuses the sharded
-    one), with the spec's window or the batch budget rule, ``M_total``
-    read from the serving capacity (``live.messages`` + pre-scripted
-    adds)."""
+    """Streaming-engine selection for live mode: the explicit engine if
+    named, else sharded over several ranks, windowed otherwise; the
+    window follows the batch budget rule with ``M_total`` read from the
+    serving capacity (``live.messages`` + pre-scripted adds)."""
+    if spec.engine in ("windowed", "sharded"):
+        name = spec.engine
+    else:
+        name = "sharded" if _device_count(spec) > 1 else "windowed"
     window = spec.window.window
     if window is None:
-        budget = spec.memory_budget_mb * 2 ** 20
+        devices = _device_count(spec) if name == "sharded" else 1
+        budget = devices * spec.memory_budget_mb * 2 ** 20
         m_total = spec.live.messages + scn.n_adds
         window = int(min(max(64, budget // (8 * scn.n)), max(m_total, 1)))
-    return "windowed", window
+    return name, window
 
 
-def _run_live(spec: RunSpec, device, on_tick=None) -> RunReport:
-    scn = build_live_scenario(spec)
-    engine_name, window = _select_live_engine(spec, scn)
+def _run_live(spec: RunSpec, device, scn: VecScenario, engine_name: str,
+              window: int, on_tick=None) -> RunReport:
     obs = _build_obs(spec, engine_name, live=True)
     lv = spec.live
     arrival_params = dict(rate_lo=lv.rate_lo, period=lv.period,
                           duty=lv.duty)
     ob = spec.obs
     ops = None
-    if ob.ops_out is not None or ob.watch:
+    if (ob.ops_out is not None or ob.watch) and _rank() == 0:
         ops = OpsPlane(out=ob.ops_out, sink=ob.ops_sink,
                        every=ob.ops_every, slo_p99=lv.slo_p99,
                        watch=True if ob.watch else None)
     loop = LiveLoop(
         scn, window, engine=engine_name, device=device,
-        seg_len=spec.window.seg_len, horizon=spec.window.horizon,
+        devices=spec.shard.devices, scan=spec.shard.scan,
+        profile=spec.shard.profile, seg_len=spec.window.seg_len, horizon=spec.window.horizon,
         collect=spec.window.collect, arrivals=lv.arrivals,
         admission=lv.admission, rate=lv.rate, messages=lv.messages,
         queue_cap=lv.queue_cap, per_round_cap=lv.per_round_cap,
@@ -357,7 +443,7 @@ def _run_live(spec: RunSpec, device, on_tick=None) -> RunReport:
         scenario=lr.scenario, live=lr, obs=obs)
     # the live result is re-indexed to the admitted scenario, so the
     # batch-mode checker runs on it unchanged
-    if spec.metrics.oracle:
+    if spec.metrics.oracle and _rank() == 0:
         report.oracle = _check_oracle(lr.scenario, res)
     _write_obs_outputs(spec, report)
     return report
@@ -369,14 +455,25 @@ def _run_live(spec: RunSpec, device, on_tick=None) -> RunReport:
 def run(spec: RunSpec, on_tick=None) -> RunReport:
     """Validate ``spec``, build the scenario, pick the engine, execute
     on the spec's device (the card unless ``device="cpu"``), and
-    measure.  ``on_tick`` (live mode only) is called with a small
-    progress dict after every serving tick."""
+    measure.  A sharded run over several ranks starts them when no
+    process group is running (see the module docstring).  ``on_tick``
+    (live mode only) is called with a small progress dict after every
+    serving tick."""
     spec.validate()
     device = resolve_device(spec.device)
     if spec.mode == "live":
-        return _run_live(spec, device, on_tick=on_tick)
-    scn = build_scenario(spec)
-    engine_name, window = select_engine(spec, scn)
+        scn = build_live_scenario(spec)
+        engine_name, window = _select_live_engine(spec, scn)
+    else:
+        scn = build_scenario(spec)
+        engine_name, window = select_engine(spec, scn)
+    if engine_name == "sharded" and not _in_group():
+        world = _device_count(spec)
+        if world > 1:
+            return _launch_ranks(spec, world, device)
+    if spec.mode == "live":
+        return _run_live(spec, device, scn, engine_name, window,
+                         on_tick=on_tick)
     snapshot_round = _snapshot_round(spec, scn)
     obs = _build_obs(spec, engine_name)
 
@@ -388,14 +485,57 @@ def run(spec: RunSpec, on_tick=None) -> RunReport:
 
     report = RunReport(
         spec=spec, engine=engine_name, device=str(device),
-        window=(result.window if engine_name == "windowed" else None),
+        window=(result.window if engine_name in ("windowed", "sharded")
+                else None),
         wall_seconds=wall, n=scn.n, m_app=scn.m_app, rounds=scn.rounds,
         stats=stats, delivered_frac=frac, mean_latency=latency,
         extras=extras, result=result, scenario=scn, obs=obs)
-    if spec.metrics.oracle:
+    if spec.metrics.oracle and _rank() == 0:
         report.oracle = _check_oracle(scn, result)
     _write_obs_outputs(spec, report)
     return report
+
+
+def _launch_ranks(spec: RunSpec, world: int, device: torch.device
+                  ) -> RunReport:
+    """Run ``spec`` on ``world`` spawned ranks and return rank 0's
+    report; raises if any rank fails.  The ranks meet through a file
+    store in a temporary directory, so concurrent launches never fight
+    over a port."""
+    import torch.multiprocessing as mp
+    require_cards(world, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "report.pkl")
+        mp.start_processes(_rank_main, nprocs=world, join=True,
+                           start_method="spawn",
+                           args=(world, device.type,
+                                 os.path.join(tmp, "store"), spec, out))
+        with open(out, "rb") as fh:
+            return pickle.load(fh)
+
+
+def _rank_main(rank: int, world: int, device_type: str, store: str,
+               spec: RunSpec, out: str) -> None:
+    """One spawned rank: join the process group, run the spec, and on
+    rank 0 pickle the report to ``out``."""
+    if device_type == "cuda":
+        torch.cuda.set_device(rank)
+    else:
+        # the CPU ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    # a rank that stops answering fails the others' collectives after
+    # the timeout, so the launch raises instead of hanging
+    dist.init_process_group("nccl" if device_type == "cuda" else "gloo",
+                            init_method=f"file://{store}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(minutes=10))
+    try:
+        rep = run(spec)
+        if rank == 0:
+            with open(out, "wb") as fh:
+                pickle.dump(rep, fh)
+    finally:
+        dist.destroy_process_group()
 
 
 def _check_oracle(scn: VecScenario, result) -> OracleReport:

@@ -1,15 +1,14 @@
 """Declarative experiment specs of the port: ``RunSpec``, batch or live.
 
 Same sections and field names as the JAX package's ``repro.api.spec``
-(topology, traffic, dynamics, window, live, metrics, obs), with one
-change: ``backend`` becomes ``device`` — ``None`` (the card, the
+(topology, traffic, dynamics, window, shard, live, metrics, obs), with
+one change: ``backend`` becomes ``device`` — ``None`` (the card, the
 default) or ``"cpu"``.  :meth:`RunSpec.from_dict` accepts the JAX
 package's ``RunSpec.to_dict()`` output: its ``backend`` key is dropped,
-and what this port does not run yet (the sharded engine and its
-``shard`` section, the exact engine's cross-validation, the
-vector-clock protocol) is accepted only at its defaults — any other
-value raises :class:`SpecError` naming the slice of the port that will
-bring it.
+and what this port does not run yet (the exact engine's
+cross-validation, the vector-clock protocol) is accepted only at its
+defaults — any other value raises :class:`SpecError` naming the slice
+of the port that will bring it.
 
 Validation is eager: :meth:`RunSpec.validate` raises :class:`SpecError`
 naming the offending field and the valid registry keys.
@@ -22,7 +21,8 @@ from dataclasses import dataclass, field, replace
 from typing import Any, Dict, Optional, Union
 
 __all__ = ["SpecError", "TopologySpec", "TrafficSpec", "DynamicsSpec",
-           "WindowSpec", "LiveSpec", "ObsSpec", "MetricsSpec", "RunSpec"]
+           "WindowSpec", "ShardSpec", "LiveSpec", "ObsSpec", "MetricsSpec",
+           "RunSpec"]
 
 
 class SpecError(ValueError):
@@ -75,6 +75,28 @@ class WindowSpec:
     seg_len: int = 32              # rounds per segment between retirements
     horizon: Optional[int] = None  # force-retire columns older than this
     collect: str = "auto"          # full | aggregate | auto
+
+
+@dataclass(frozen=True)
+class ShardSpec:
+    """Rank knobs of the sharded engine (``core.vecsim.shard``).
+
+    ``devices`` is the number of ranks the process axis is split over
+    (``None``: the running process group's, 1 without one).  When it is
+    above 1 and no process group is running, ``run`` starts that many
+    ranks itself: NCCL with one card a rank on the card, gloo on the
+    CPU.  ``scan`` picks the segment loop: ``"on"`` (what ``"auto"``
+    means) defers each round's frontier exchange, fuses the retirement
+    reduction into the segment, stages schedules through persistent
+    device buffers and runs topology-quiescent segments through the
+    bit-packed fast body; ``"off"`` steps every round through the
+    generic body.  The results are byte-identical.  ``profile=True``
+    records per-segment host times (``result.seg_profile``) and their
+    totals in the report extras."""
+
+    devices: Optional[int] = None   # ranks; None = the process group's
+    scan: str = "auto"              # segment loop: auto | on | off
+    profile: bool = False           # per-segment timing breakdown
 
 
 @dataclass(frozen=True)
@@ -159,18 +181,11 @@ class MetricsSpec:
     oracle: bool = False       # happens-before oracle on the trace
 
 
-# Sections and values of the JAX package's RunSpec that this port does
-# not run yet: their defaults there, and the slice of the port that
-# will bring them.  A reference spec dict may carry them at these
-# defaults; anything else is refused.
-_LATER_SECTIONS = {
-    "shard": ("the sharded-engine slice",
-              dict(devices=None, scan="auto", profile=False)),
-}
+# Values of the JAX package's RunSpec that this port does not run yet,
+# and the slice of the port that will bring them.
 _LATER_VALUES = {
     ("protocol", "vc"): "the vector-clock baseline slice",
     ("engine", "exact"): "the exact-engine slice",
-    ("engine", "sharded"): "the sharded-engine slice",
 }
 
 
@@ -187,7 +202,7 @@ class RunSpec:
 
     protocol: str = "pc"       # pc | r   (repro_torch.api.PROTOCOLS)
     mode: str = "batch"        # batch (pre-scripted) | live (open-loop)
-    engine: str = "auto"       # auto | vec | windowed
+    engine: str = "auto"       # auto | vec | windowed | sharded
     device: Optional[str] = None   # None = the card | "cuda" | "cpu"
     n: int = 64                # processes
     seed: int = 0
@@ -198,6 +213,7 @@ class RunSpec:
     traffic: TrafficSpec = field(default_factory=TrafficSpec)
     dynamics: DynamicsSpec = field(default_factory=DynamicsSpec)
     window: WindowSpec = field(default_factory=WindowSpec)
+    shard: ShardSpec = field(default_factory=ShardSpec)
     live: LiveSpec = field(default_factory=LiveSpec)
     metrics: MetricsSpec = field(default_factory=MetricsSpec)
     obs: ObsSpec = field(default_factory=ObsSpec)
@@ -261,8 +277,35 @@ class RunSpec:
         if self.window.window is not None and self.engine == "vec":
             raise SpecError(
                 f"window.window={self.window.window} only applies to "
-                "engine 'windowed' or 'auto' (got engine='vec'); the "
-                "monolithic engine would silently ignore it")
+                "engine 'windowed', 'sharded' or 'auto' (got "
+                "engine='vec'); the monolithic engine would silently "
+                "ignore it")
+        sh = self.shard
+        one_device = self.engine in ("vec", "windowed")
+        if sh.devices is not None:
+            if not isinstance(sh.devices, int) \
+                    or isinstance(sh.devices, bool) or sh.devices < 1:
+                raise SpecError(f"shard.devices={sh.devices!r} must be an "
+                                "int >= 1 (or None for the process "
+                                "group's)")
+            if one_device:
+                raise SpecError(
+                    f"shard.devices={sh.devices} only applies to engine "
+                    f"'sharded' or 'auto' (got engine={self.engine!r}); "
+                    "one-device engines would silently ignore it")
+        if sh.scan not in ("auto", "on", "off"):
+            raise SpecError(f"shard.scan={sh.scan!r} must be one of "
+                            "['auto', 'off', 'on']")
+        if sh.scan != "auto" and one_device:
+            raise SpecError(
+                f"shard.scan={sh.scan!r} only applies to engine 'sharded' "
+                f"or 'auto' (got engine={self.engine!r}); one-device "
+                "engines would silently ignore it")
+        if sh.profile and one_device:
+            raise SpecError(
+                f"shard.profile=True only applies to engine 'sharded' or "
+                f"'auto' (got engine={self.engine!r}); one-device engines "
+                "have no per-segment staging to profile")
         ob = self.obs
         if ob.histograms is not None and not isinstance(ob.histograms,
                                                         bool):
@@ -322,11 +365,11 @@ class RunSpec:
                 raise SpecError(
                     f"live.per_round_cap={lv.per_round_cap} must be in "
                     f"[1, n={self.n}] (one broadcast per (origin, round))")
-            if self.engine not in ("auto", "windowed"):
+            if self.engine not in ("auto", "windowed", "sharded"):
                 raise SpecError(
-                    f"mode='live' serves through the streaming engine; "
-                    f"engine must be 'auto' or 'windowed' (got "
-                    f"{self.engine!r})")
+                    f"mode='live' serves through a streaming engine; "
+                    f"engine must be 'auto', 'windowed' or 'sharded' "
+                    f"(got {self.engine!r})")
             if snap is not None:
                 raise SpecError("metrics.snapshot is not supported in "
                                 "mode='live' (segment boundaries are "
@@ -353,19 +396,16 @@ class RunSpec:
         """Build a spec from a (possibly partial) nested dict — unknown
         keys raise, missing keys take the dataclass defaults.  A JAX
         package spec dict is accepted: ``backend`` is dropped in favour
-        of ``device``, ``metrics.crossval=False`` and the ``shard``
-        section at its defaults pass, and any other value of those
-        raises :class:`SpecError`."""
+        of ``device``, ``metrics.crossval=False`` passes, and
+        ``metrics.crossval=True`` raises :class:`SpecError`."""
         sections = dict(topology=TopologySpec, traffic=TrafficSpec,
                         dynamics=DynamicsSpec, window=WindowSpec,
-                        live=LiveSpec, metrics=MetricsSpec, obs=ObsSpec)
+                        shard=ShardSpec, live=LiveSpec,
+                        metrics=MetricsSpec, obs=ObsSpec)
         kw: Dict[str, Any] = {}
         top_fields = {f.name for f in dataclasses.fields(cls)}
         for key, value in d.items():
             if key == "backend":
-                continue
-            if key in _LATER_SECTIONS:
-                _check_later_section(key, value)
                 continue
             if key not in top_fields:
                 raise SpecError(f"unknown RunSpec field {key!r}; valid "
@@ -393,14 +433,3 @@ class RunSpec:
                 kw[key] = value
         return cls(**kw)
 
-
-def _check_later_section(key: str, value: Any) -> None:
-    slice_name, defaults = _LATER_SECTIONS[key]
-    if not isinstance(value, dict):
-        raise SpecError(f"{key} must be an object, got {value!r}")
-    for fld, v in value.items():
-        if fld not in defaults:
-            raise SpecError(f"unknown {key} field {fld!r}; valid fields: "
-                            f"{sorted(defaults)}")
-        if v != defaults[fld]:
-            raise _later(f"{key}.{fld}={v!r}", slice_name)

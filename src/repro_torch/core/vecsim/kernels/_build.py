@@ -43,6 +43,8 @@ _SIGNATURES = {
     "rt_frontier_sweep": [_P] * 9 + [_I] * 4 + [_P],
     "rt_retire_reduce": [_P] * 9 + [_I] * 5 + [_P],
     "rt_latency_hist": [_P] * 4 + [_I] * 4 + [_P],
+    "rt_slot_frontier": [_P] * 8 + [_I] * 4 + [_P],
+    "rt_ring_apply": [_P] * 3 + [_I] * 3 + [_P],
 }
 
 

@@ -25,6 +25,8 @@
 namespace repro_torch {
 
 constexpr unsigned kFullMask = 0xffffffffu;
+// "never" in the arrival planes: scenario.INF of the Python package
+constexpr int32_t kInf = 1 << 30;
 constexpr int kSweepCols = 32;
 constexpr int kSweepRows = 8;
 

@@ -1,5 +1,5 @@
-"""Wrappers of the delivery-sweep, retirement and telemetry kernels: the
-only way the engines reach them.
+"""Wrappers of the delivery-sweep, retirement, telemetry and
+sharded-exchange kernels: the only way the engines reach them.
 
 Each wrapper checks its tensors (device, dtype, shape, contiguity) and
 then runs, by the device the planes lie on:
@@ -34,12 +34,14 @@ from . import _build
 from . import ref as _ref
 
 __all__ = ["LAUNCHES", "reset_launches", "fused_sweep", "deliver_sweep",
-           "frontier_sweep", "retire_reduce", "retire_scan", "latency_hist"]
+           "frontier_sweep", "retire_reduce", "retire_scan", "latency_hist",
+           "slot_frontier", "ring_apply"]
 
 #: kernel name -> launches since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"fused_sweep": 0, "deliver_sweep": 0,
                             "frontier_sweep": 0, "retire_reduce": 0,
-                            "retire_scan": 0, "latency_hist": 0}
+                            "retire_scan": 0, "latency_hist": 0,
+                            "slot_frontier": 0, "ring_apply": 0}
 
 # blocks of retire_reduce aimed for when W alone gives too few
 _RETIRE_TARGET_BLOCKS = 2048
@@ -162,6 +164,23 @@ def launch_latency_hist(base, delivered, cols, hist):
         base.data_ptr(), delivered.data_ptr(),
         None if cols is None else cols.data_ptr(), hist.data_ptr(), n, w,
         ncols, _hist_rows_per_chunk(n, ncols), _stream(delivered.device)))
+
+
+def launch_slot_frontier(delivered, gate_k, delay_k, do_k, fwd_k, is_app,
+                         t, gating, vals, win_cnt):
+    n, w = delivered.shape
+    _raise_on("slot_frontier", _build.load_library().rt_slot_frontier(
+        delivered.data_ptr(), gate_k.data_ptr(), delay_k.data_ptr(),
+        _u8(do_k), _u8(fwd_k), _u8(is_app), vals.data_ptr(),
+        win_cnt.data_ptr(), n, w, int(t), int(bool(gating)),
+        _stream(delivered.device)))
+
+
+def launch_ring_apply(dest, vals, tgt, off):
+    n, w = dest.shape
+    _raise_on("ring_apply", _build.load_library().rt_ring_apply(
+        dest.data_ptr(), vals.data_ptr(), tgt.data_ptr(), n, w, int(off),
+        _stream(dest.device)))
 
 
 def _check_planes(arr, delivered, crashed, is_app):
@@ -323,3 +342,55 @@ def latency_hist(base, delivered, cols=None):
                             None if cols is None else cols.to(dev), hist)
         LAUNCHES["latency_hist"] += 1
     return hist
+
+
+def slot_frontier(delivered, gate_k, delay_k, do_k, fwd_k, is_app, t: int,
+                  gating: bool):
+    """One link slot's contribution plane for the sharded ring:
+    ``(vals, win_cnt)`` — int32 ``(N, W)`` plane, ``t + delay_k`` where
+    the row forwards (``fwd_k``) a delivery of round ``t`` or, with
+    ``gating``, flushes (``do_k``) an app column delivered in ``[gate_k,
+    t)``, INF elsewhere; and the int32 count of flushed cells."""
+    dev = delivered.device
+    if delivered.dim() != 2:
+        raise ValueError(f"delivered must be (N, W), got "
+                         f"{tuple(delivered.shape)}")
+    n, w = delivered.shape
+    _check("delivered", delivered, torch.int32, (n, w), dev)
+    for name, x, dtype in (("gate_k", gate_k, torch.int32),
+                           ("delay_k", delay_k, torch.int32),
+                           ("do_k", do_k, torch.bool),
+                           ("fwd_k", fwd_k, torch.bool)):
+        _check(name, x, dtype, (n,), dev)
+    _check("is_app", is_app, torch.bool, (w,), dev)
+    if n * w >= 2 ** 31:
+        raise ValueError(f"slot_frontier counts in int32: a ({n}, {w}) "
+                         "plane has 2^31 cells or more")
+    if not _route(dev):
+        return _ref.slot_frontier_ref(delivered, gate_k, delay_k, do_k,
+                                      fwd_k, is_app, t, gating)
+    vals = torch.empty((n, w), dtype=torch.int32, device=dev)
+    win_cnt = torch.zeros((), dtype=torch.int32, device=dev)
+    launch_slot_frontier(delivered, gate_k, delay_k, do_k, fwd_k, is_app, t,
+                         gating, vals, win_cnt)
+    LAUNCHES["slot_frontier"] += 1
+    return vals, win_cnt
+
+
+def ring_apply(dest, vals, tgt, off: int):
+    """One ring hop in place: ``dest`` — the rows of ``vals`` whose
+    global target ``tgt[p]`` lies in ``[off, off + N)`` scatter-min into
+    row ``tgt[p] - off`` of ``dest``; the others are dropped."""
+    dev = dest.device
+    if dest.dim() != 2:
+        raise ValueError(f"dest must be (N, W), got {tuple(dest.shape)}")
+    n, w = dest.shape
+    _check("dest", dest, torch.int32, (n, w), dev)
+    _check("vals", vals, torch.int32, (n, w), dev)
+    _check("tgt", tgt, torch.int32, (n,), dev)
+    if not _route(dev):
+        dest.copy_(_ref.ring_apply_ref(dest, vals, tgt, off))
+        return dest
+    launch_ring_apply(dest, vals, tgt, off)
+    LAUNCHES["ring_apply"] += 1
+    return dest

@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the delivery-sweep, retirement and
-latency-histogram kernels.
+"""Plain PyTorch versions of the delivery-sweep, retirement,
+latency-histogram and sharded-exchange kernels, and the frontier
+bit-plane helpers of the sharded fast body.
 
 Each function states, in ordinary tensor operations, what the CUDA
 kernel of the same name in ``csrc/`` computes (``retire_scan`` is the
@@ -21,9 +22,14 @@ from __future__ import annotations
 import torch
 
 from ....obs.hist import NB, bucket_index_torch
+from ..scenario import INF
 
 __all__ = ["deliver_sweep_ref", "fused_sweep_ref", "frontier_sweep_ref",
-           "retire_scan_ref", "retire_reduce_ref", "NB", "latency_hist_ref"]
+           "retire_scan_ref", "retire_reduce_ref", "NB", "latency_hist_ref",
+           "slot_frontier_ref", "ring_apply_ref", "pack_columns",
+           "unpack_columns", "popcount_bytes"]
+
+_INF = int(INF)
 
 
 def _scatter_min(arr: torch.Tensor, send: torch.Tensor, tgt: torch.Tensor,
@@ -125,3 +131,72 @@ def latency_hist_ref(base, delivered, cols=None):
     flat = (torch.arange(c, device=d.device)[None, :] * NB + bucket)[valid]
     return torch.bincount(flat, minlength=c * NB).view(c, NB).to(
         torch.int32)
+
+
+def slot_frontier_ref(delivered, gate_k, delay_k, do_k, fwd_k, is_app,
+                      t: int, gating: bool):
+    """(vals, win_cnt) — one link slot's contribution plane for the
+    sharded ring: ``t + delay_k`` where the row forwards (``fwd_k``) a
+    delivery of round ``t`` or, with ``gating``, flushes (``do_k``) an
+    app column delivered in ``[gate_k, t)``; INF elsewhere.  ``win_cnt``
+    (int32 scalar) counts the flushed cells."""
+    dk = (t + delay_k).to(torch.int32)[:, None]
+    send = (delivered == t) & fwd_k[:, None]
+    win_cnt = torch.zeros((), dtype=torch.int32, device=delivered.device)
+    if gating:
+        win = ((delivered >= gate_k[:, None]) & (delivered < t)
+               & do_k[:, None] & is_app[None, :])
+        send = send | win
+        win_cnt = win.sum(dtype=torch.int32)
+    inf = torch.full_like(delivered, _INF)
+    return torch.where(send, dk.expand_as(delivered), inf), win_cnt
+
+
+def ring_apply_ref(dest, vals, tgt, off: int):
+    """dest' — one ring hop: the rows of ``vals`` whose global target
+    ``tgt[p]`` lies in ``[off, off + n_loc)`` scatter-min into row
+    ``tgt[p] - off`` of a copy of ``dest``; the others are dropped."""
+    n_loc, w = dest.shape
+    tl = tgt.to(torch.int64) - off
+    local = (tl >= 0) & (tl < n_loc)
+    idx = tl[local][:, None].expand(-1, w)
+    return dest.clone().scatter_reduce_(0, idx, vals[local], reduce="amin")
+
+
+# ------------------------------------------------------------------------- #
+# Frontier bit planes (the sharded fast body): plain tensor operations in
+# every route, like their JAX counterparts, which are lax and not Pallas.
+# Bit order is little-endian within a byte, as np.packbits(...,
+# bitorder="little") packs it.
+# ------------------------------------------------------------------------- #
+def _bit_shifts(device) -> torch.Tensor:
+    # built on the device (no host-to-card copy, so no wait on the card)
+    one = torch.ones(8, dtype=torch.uint8, device=device)
+    return one << torch.arange(8, dtype=torch.uint8, device=device)
+
+
+def pack_columns(b: torch.Tensor) -> torch.Tensor:
+    """Bit-pack an ``(N, W)`` bool plane into ``(N, ceil(W/8))`` uint8;
+    the ragged tail bits are zero."""
+    n, w = b.shape
+    wp = -(-max(w, 1) // 8)
+    if wp * 8 != w:
+        b = torch.cat([b, b.new_zeros((n, wp * 8 - w))], dim=1)
+    bits = b.view(n, wp, 8).to(torch.uint8) * _bit_shifts(b.device)
+    return bits.sum(dim=2, dtype=torch.uint8)
+
+
+def unpack_columns(p: torch.Tensor, w: int) -> torch.Tensor:
+    """Inverse of :func:`pack_columns`: ``(N, Wp)`` uint8 back to the
+    ``(N, w)`` bool plane."""
+    n, wp = p.shape
+    b = (p[:, :, None] & _bit_shifts(p.device)) != 0
+    return b.view(n, wp * 8)[:, :w]
+
+
+def popcount_bytes(x: torch.Tensor) -> torch.Tensor:
+    """Per-byte SWAR popcount of a uint8 tensor (three shift/mask
+    rounds)."""
+    x = x - ((x >> 1) & 0x55)
+    x = (x & 0x33) + ((x >> 2) & 0x33)
+    return (x + (x >> 4)) & 0x0F

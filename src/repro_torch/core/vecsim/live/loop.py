@@ -1,8 +1,9 @@
 """The live serving loop: open-loop ingest -> micro-batch -> segment —
 the port's copy of the JAX package's ``repro.core.vecsim.live.loop``,
-serving through the windowed engine on the card (or the CPU).
+serving through the windowed or the sharded engine on the card (or the
+CPU).
 
-``LiveLoop`` turns the windowed engine into a long-running service. A
+``LiveLoop`` turns a streaming engine into a long-running service. A
 pre-drawn open-loop submission trace (``arrivals``) feeds a bounded
 ingest queue; each *tick* the loop
 
@@ -147,16 +148,18 @@ class LiveLoop:
 
     ``scn`` is a broadcast-free base scenario (topology + optional
     pre-scripted churn/crash dynamics); its ``rounds`` is raised to the
-    serving bound internally.  ``engine`` must be ``"windowed"`` (the
-    sharded engine is not ported yet); ``device`` is the card unless
-    ``"cpu"`` is asked for; everything else mirrors the batch-mode
-    engine knobs plus the serving-specific ones documented on
+    serving bound internally.  ``engine`` is ``"windowed"`` or
+    ``"sharded"`` (over ``devices`` ranks, with the ``scan`` and
+    ``profile`` knobs; every rank runs the same loop); ``device`` is the
+    card unless ``"cpu"`` is asked for; everything else mirrors the
+    batch-mode engine knobs plus the serving-specific ones documented on
     :class:`repro_torch.api.LiveSpec`.
     """
 
     def __init__(self, scn: VecScenario, window: int, *,
                  engine: str = "windowed", device=None,
-                 seg_len: int = 32, horizon: Optional[int] = None,
+                 devices: Optional[int] = None, scan: str = "auto",
+                 profile: bool = False, seg_len: int = 32, horizon: Optional[int] = None,
                  collect: str = "auto",
                  arrivals: str = "poisson", admission: str = "defer",
                  rate: float = 8.0, messages: int = 1024,
@@ -171,11 +174,9 @@ class LiveLoop:
         if scn.m_app:
             raise ValueError("live mode needs a broadcast-free base "
                              "scenario; traffic comes from `arrivals`")
-        if engine != "windowed":
-            raise ValueError(
-                f"the port serves through engine='windowed' only, got "
-                f"{engine!r} (live serving on the sharded engine comes "
-                "with the sharded-engine slice)")
+        if engine not in ("windowed", "sharded"):
+            raise ValueError(f"live mode supports engine='windowed' or "
+                             f"'sharded', got {engine!r}")
         try:
             self.policy: AdmissionPolicy = _ADMISSION[admission]
         except KeyError:
@@ -219,9 +220,16 @@ class LiveLoop:
 
         self.cw = LiveColumnWindow(scn, window, capacity=messages,
                                    horizon=horizon)
-        self.stepper = WindowedStepper(
-            scn, window, device=device, horizon=horizon, seg_len=seg_len,
-            collect=collect, cw=self.cw, obs=self.obs)
+        if engine == "sharded":
+            from ..shard.driver import ShardedStepper
+            self.stepper = ShardedStepper(
+                scn, window, n_devices=devices, device=device,
+                horizon=horizon, seg_len=seg_len, collect=collect,
+                scan=scan, profile=profile, cw=self.cw, obs=self.obs)
+        else:
+            self.stepper = WindowedStepper(
+                scn, window, device=device, horizon=horizon,
+                seg_len=seg_len, collect=collect, cw=self.cw, obs=self.obs)
 
         self.queue: deque = deque()      # (submit_round, origin)
         self.submit_round = np.full(messages, -1, np.int64)

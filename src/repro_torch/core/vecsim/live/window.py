@@ -40,6 +40,8 @@ class LiveColumnWindow(ColumnWindow):
     is, so the cap stays with the loop.
     """
 
+    mutable_schedule = True
+
     def __init__(self, scn: VecScenario, window: int, capacity: int,
                  horizon: Optional[int] = None):
         if scn.m_app:

@@ -165,6 +165,10 @@ class ColumnWindow:
     round, and expiry — and with it overflow timing — does not depend on
     ``seg_len``."""
 
+    #: set by the live subclass: the schedule grows between segments, so
+    #: a driver must not stage a segment's schedule ahead of time
+    mutable_schedule = False
+
     def __init__(self, scn: VecScenario, window: int,
                  horizon: Optional[int] = None):
         self.scn = scn
@@ -312,6 +316,12 @@ class ColumnWindow:
                 t_end = expiry_due
         self.peak_live = max(self.peak_live, int(live.sum()))
         return t_end
+
+    def live_cols(self) -> np.ndarray:
+        return np.nonzero(self.slot_msg >= 0)[0]
+
+    def free_cols(self, cols: np.ndarray) -> None:
+        self.slot_msg[cols] = -1
 
 
 class WindowedStepper:

@@ -2,8 +2,11 @@
 package's ``repro.api.run`` with the numpy backend, both with telemetry
 at its defaults: engine selection, stats, delivered fraction, latency,
 extras (the latency percentiles of windowed runs included) and the
-oracle; ``RunSpec.from_dict`` on the reference's spec dicts, with the
-not-yet-ported sections refused; and the command line."""
+oracle; ``RunSpec.from_dict`` on the reference's spec dicts, the
+``shard`` section accepted and what is not ported yet refused; engine
+auto-selection with ranks; the sharded engine through the front door
+(one rank in process, two spawned gloo ranks) against the reference's
+windowed engine; and the command line."""
 
 import dataclasses
 import json
@@ -101,23 +104,34 @@ def test_from_dict_accepts_reference_dicts():
 
 
 def test_unported_defaults_track_the_reference():
-    from repro_torch.api.spec import _LATER_SECTIONS
-    assert set(_LATER_SECTIONS) == {"shard"}
-    assert _LATER_SECTIONS["shard"][1] == dataclasses.asdict(
-        japi.ShardSpec())
-    # the ported live and obs sections keep the reference's defaults
-    for port_cls, cls in ((tapi.LiveSpec, japi.LiveSpec),
+    from repro_torch.api.spec import _LATER_VALUES
+    assert set(_LATER_VALUES) == {("protocol", "vc"), ("engine", "exact")}
+    # the ported shard, live and obs sections keep the reference's
+    # defaults
+    for port_cls, cls in ((tapi.ShardSpec, japi.ShardSpec),
+                          (tapi.LiveSpec, japi.LiveSpec),
                           (tapi.ObsSpec, japi.ObsSpec)):
         assert dataclasses.asdict(port_cls()) == dataclasses.asdict(cls())
 
 
+@pytest.mark.parametrize("ref_kw", [
+    dict(shard=japi.ShardSpec(devices=2), engine="sharded"),
+    dict(shard=japi.ShardSpec(scan="on")),
+    dict(mode="live", engine="sharded"),
+    dict(mode="live", shard=japi.ShardSpec(devices=4)),
+    dict(shard=japi.ShardSpec(profile=True), engine="sharded"),
+    dict(shard=japi.ShardSpec(devices=1, scan="off", profile=True),
+         engine="sharded", window=japi.WindowSpec(window=16)),
+])
+def test_from_dict_accepts_shard_section(ref_kw):
+    spec = tapi.RunSpec.from_dict(japi.RunSpec(**ref_kw).to_dict())
+    spec.validate()
+    want = ref_kw.get("shard", japi.ShardSpec())
+    assert dataclasses.asdict(spec.shard) == dataclasses.asdict(want)
+    assert tapi.RunSpec.from_dict(spec.to_dict()) == spec
+
+
 @pytest.mark.parametrize("ref_kw,match", [
-    (dict(shard=japi.ShardSpec(devices=2), engine="sharded"), "sharded"),
-    (dict(shard=japi.ShardSpec(scan="on")), "sharded-engine slice"),
-    (dict(mode="live", engine="sharded"), "sharded-engine slice"),
-    (dict(mode="live", shard=japi.ShardSpec(devices=4)),
-     "sharded-engine slice"),
-    (dict(shard=japi.ShardSpec(profile=True)), "sharded-engine slice"),
     (dict(mode="live", metrics=japi.MetricsSpec(crossval=True)),
      "exact-engine slice"),
     (dict(metrics=japi.MetricsSpec(crossval=True)), "exact-engine slice"),
@@ -145,6 +159,92 @@ def test_validation_errors():
             device="cpu", engine="windowed",
             window=tapi.WindowSpec(window=16, collect="aggregate"),
             metrics=tapi.MetricsSpec(oracle=True)))
+    for engine, shard in (("windowed", tapi.ShardSpec(devices=2)),
+                          ("vec", tapi.ShardSpec(scan="off")),
+                          ("windowed", tapi.ShardSpec(profile=True))):
+        with pytest.raises(tapi.SpecError, match="engine 'sharded'"):
+            tapi.RunSpec(engine=engine, shard=shard).validate()
+    for shard in (tapi.ShardSpec(devices=0), tapi.ShardSpec(devices=True),
+                  tapi.ShardSpec(scan="maybe")):
+        with pytest.raises(tapi.SpecError, match="shard"):
+            tapi.RunSpec(engine="sharded", shard=shard).validate()
+
+
+def test_sharded_engine_auto_selection():
+    """Rule 1 with ranks asked for, rule 3 with several ranks, and the
+    CPU route counting one device; the budget window scales with the
+    ranks as in the reference."""
+    kw = dict(n=512, seed=3, memory_budget_mb=1,
+              topology=tapi.TopologySpec(kind="kregular", k=6, max_delay=1),
+              traffic=tapi.TrafficSpec(kind="poisson", rate=16.0,
+                                       messages=400))
+    for shard, window, want in (
+            (tapi.ShardSpec(devices=2), tapi.WindowSpec(window=40),
+             ("sharded", 40)),
+            (tapi.ShardSpec(), tapi.WindowSpec(window=40),
+             ("windowed", 40)),
+            (tapi.ShardSpec(devices=4), tapi.WindowSpec(),
+             ("sharded", 400)),
+            (tapi.ShardSpec(devices=1), tapi.WindowSpec(),
+             ("windowed", 256)),
+            (tapi.ShardSpec(), tapi.WindowSpec(), ("windowed", 256))):
+        spec = tapi.RunSpec(device="cpu", shard=shard, window=window, **kw)
+        got = tapi.select_engine(spec, tapi.build_scenario(spec))
+        assert got == want, (shard, window)
+        ref = japi.RunSpec(backend="jax", shard=japi.ShardSpec(
+            **dataclasses.asdict(shard)), window=japi.WindowSpec(
+            **dataclasses.asdict(window)), **{
+            key: (getattr(japi, type(v).__name__)(**dataclasses.asdict(v))
+                  if dataclasses.is_dataclass(v) else v)
+            for key, v in kw.items()})
+        if shard.devices is not None:
+            assert japi.select_engine(ref, japi.build_scenario(ref)) == want
+
+
+def _sharded_pair(devices):
+    kw = dict(n=96, seed=2,
+              topology=tapi.TopologySpec(kind="kregular", k=5, max_delay=2),
+              traffic=tapi.TrafficSpec(kind="poisson", rate=3.0,
+                                       messages=60),
+              window=tapi.WindowSpec(window=40, seg_len=4, collect="full"),
+              metrics=tapi.MetricsSpec(oracle=True))
+    ref, _ = _pair(engine="windowed", **dict(kw))
+    port = tapi.RunSpec(device="cpu", engine="sharded",
+                        shard=tapi.ShardSpec(devices=devices, profile=True),
+                        **kw)
+    return ref, port
+
+
+@pytest.mark.parametrize("devices", [1, 2])
+def test_sharded_run_matches_reference_windowed(devices):
+    """``engine="sharded"`` through the front door — in process at one
+    rank, on two spawned gloo ranks — equals the reference's windowed
+    engine (the JAX sharded engine equals it by its own contract)."""
+    ref_spec, port_spec = _sharded_pair(devices)
+    want, got = japi.run(ref_spec), tapi.run(port_spec)
+    assert (got.engine, got.window, got.device) == ("sharded", 40, "cpu")
+    assert vars(got.stats) == vars(want.stats)
+    assert got.delivered_frac == want.delivered_frac
+    assert got.mean_latency == want.mean_latency
+    assert got.oracle.ok and want.oracle.ok
+    assert got.extras["devices"] == devices and got.extras["scan"] == "on"
+    assert got.extras["profile_segments"] == got.result.segments > 0
+    for key, v in want.extras.items():
+        assert got.extras[key] == v, key
+    json.dumps(got.to_dict())
+
+
+def test_sharded_ranks_without_a_group_or_card_raise():
+    from repro_torch.core.vecsim import static_scenario
+    from repro_torch.core.vecsim.shard import execute_sharded, resolve_world
+    scn = static_scenario(1, 16, k=4, m_app=4)
+    with pytest.raises(RuntimeError, match="process group"):
+        execute_sharded(scn, 8, n_devices=2, device="cpu")
+    import torch
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            resolve_world(2, torch.device("cuda"))
+    assert resolve_world(None, torch.device("cpu")) == (0, 1)
 
 
 def _cli(*args):
@@ -169,3 +269,16 @@ def test_cli_runs_a_spec_and_reports_json():
     else:
         assert out.returncode == 2
         assert "device='cpu'" in out.stderr
+
+
+def test_cli_runs_the_sharded_engine():
+    out = _cli("--device", "cpu", "--engine", "sharded", "--devices", "1",
+               "--scan", "off", "--profile", "--n", "64", "--topology",
+               "kregular", "--k", "6", "--traffic", "poisson", "--rate",
+               "2", "--messages", "30", "--window", "24", "--collect",
+               "full", "--oracle")
+    assert out.returncode == 0, out.stderr
+    rep = json.loads(out.stdout)
+    assert rep["engine"] == "sharded" and rep["oracle_ok"] is True
+    assert rep["extras"]["scan"] == "off" and rep["extras"]["devices"] == 1
+    assert rep["spec"]["shard"] == dict(devices=1, scan="off", profile=True)

@@ -11,8 +11,9 @@ package's live loop on the numpy windowed engine.
 * replaying ``admitted_scenario()`` through the port's batch windowed
   engine reproduces the live run;
 * the ops plane's jsonl records equal the reference's;
-* the front door and the command line serve, and refuse the sharded
-  engine naming its slice.
+* the front door and the command line serve, and live specs name the
+  sharded engine as a streaming engine (its live runs are held against
+  the reference in ``test_torch_shard_live.py``).
 """
 
 import dataclasses
@@ -256,8 +257,8 @@ def test_api_live_matches_reference(tmp_path):
 
 
 def test_live_spec_validation():
-    with pytest.raises(tapi.SpecError, match="sharded-engine slice"):
-        tapi.RunSpec(mode="live", engine="sharded").validate()
+    assert tapi.RunSpec(mode="live", engine="sharded").validate().engine \
+        == "sharded"
     with pytest.raises(tapi.SpecError, match="live.arrivals"):
         tapi.RunSpec(mode="live",
                      live=tapi.LiveSpec(arrivals="nope")).validate()
@@ -279,7 +280,7 @@ def test_live_spec_validation():
     assert tapi.RunSpec.from_dict(spec.to_dict()) == spec
     with pytest.raises(ValueError, match="sharded"):
         LiveLoop(port_scenario(j_static(1, 16, k=4, m_app=0)), 8,
-                 engine="sharded", device="cpu")
+                 engine="vec", device="cpu")
 
 
 def test_discovery_lists_live_and_telemetry_registries():
