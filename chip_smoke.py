@@ -73,9 +73,31 @@ non-zero:
  12. sharded parity — the sharded engine on the card and on the CPU at
      one rank: every scenario builder at N = 256 with scan on and off
      and the full delivered matrix, and an N = 1,024 bursty/defer live
-     run with provenance and the audit in fail mode: byte-identical.
+     run with provenance and the audit in fail mode: byte-identical;
+ 13. lm_kernels — rglru_scan, ssd_scan and flash_attention against
+     their plain versions on the card, within float32 2e-5 and bfloat16
+     2e-2: small random cases first (odd and padded S and W, S below a
+     chunk or block, h0 on and off, GQA/MQA, D 16-256, both types),
+     then (after phases 14-15) the inputs the serving runs gave them and
+     flash on q/k/v of a recurrentgemma-9b attention layer at a
+     2,048-token prefill (also held against the layer's own attention
+     output) and at a yi-6b train_4k-like shape, each timed (bare
+     launch, wrapper, plain, scaled_dot_product_attention for flash)
+     and bounded;
+ 14. lm_serve_recurrentgemma — recurrentgemma-9b at full width and
+     depth (38 layers: 26 RG-LRU, 12 local attention; f32 weights from
+     a seeded generator, bf16 compute) through ServingEngine: 4 slots,
+     max_len 4,096, 8 prompts of 512-2,560 seeded random tokens (one
+     past the 2,048 window), 16 greedy tokens each; every request done,
+     every logit finite, 26 rglru_scan launches a prefill;
+ 15. lm_serve_mamba2 — the same for mamba2-2.7b (64 Mamba-2 layers),
+     prompts of 512-2,048 tokens, 64 ssd_scan launches a prefill;
+ 16. lm_parity — the dense, SSM and hybrid smoke() configs in float32
+     through ServingEngine on the card and on the CPU with the same
+     weights: identical greedy tokens, logits within 2e-4; then
+     ``python -m repro_torch.launch.serve --arch recurrentgemma-9b``.
 
-Then the kernels line (all eight kernels), the card's name and power
+Then the kernels line (all eleven kernels), the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Needs
 one CUDA card; exits non-zero without one.
 
@@ -185,9 +207,11 @@ def main(argv=None) -> int:
     captured.clear()
     # -- 12. sharded parity, card vs CPU ------------------------------ #
     sharded_parity_phase(np)
-
     for e in entries:
         e["launches"] = launches[e["name"]]
+    # -- 13-16. the LM substrate: kernels, serving, card vs CPU -------- #
+    entries += lm_phases(torch, np, dev)
+
     print(json.dumps({"kernels": entries}), flush=True)
     _finish(torch)
     return 0
@@ -1393,6 +1417,635 @@ def ranks_phase(torch, np, most: int):
                  profile={key: many.extras["profile_" + key] for key in (
                      "stage_s", "dispatch_s", "block_s", "retire_s")},
                  delivered_frac=many.delivered_frac)
+
+
+
+# --------------------------------------------------------------------- #
+# Phases 13-16: the LM substrate
+# --------------------------------------------------------------------- #
+LM_KSRC = "src/repro_torch/kernels/csrc"
+LM_REPLACES = {
+    "rglru_scan": "src/repro/kernels/rglru_scan/kernel.py:24",
+    "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:26",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:30"}
+# H100 SXM data-sheet peak of the tensor cores, dense bf16: the LM
+# kernels' operations are counted against it
+BF16_FLOPS_PER_S = 989e12
+# tests/test_kernels.py's tolerances, by the inputs' type
+LM_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+LM_FAMILIES = ("yi-6b", "mamba2-2.7b", "recurrentgemma-9b")
+# the two serving phases: arch -> (its kernel, the layers that launch it
+# in a prefill, the prompt lengths' range)
+LM_SERVE = {"recurrentgemma-9b": ("rglru_scan", 26, 512, 2560),
+            "mamba2-2.7b": ("ssd_scan", 64, 512, 2048)}
+# flash attention at a yi-6b train_4k-like shape
+FLASH_TRAIN_SHAPE = dict(b=1, h=32, kv=4, sq=4096, skv=4096, d=128)
+LM_LAUNCHER_ARGS = ["--arch", "recurrentgemma-9b"]
+
+
+def _lm_ops():
+    """name -> (wrapper, plain version, maker of a bare launch), each
+    taking the input dict; the maker allocates the outputs (outside any
+    timed interval) and returns a closure that launches into them."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, launch_flash_attention)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.rglru_scan.ops import (launch_rglru_scan,
+                                                    rglru_scan)
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    from repro_torch.kernels.ssd_scan.ops import (launch_ssd_scan,
+                                                  ssd_chunk_scan)
+    from repro_torch.kernels.ssd_scan.ref import (chunk_len,
+                                                  ssd_chunk_scan_ref)
+
+    def rglru_bare(i):
+        h = torch.empty(i["a"].shape, dtype=torch.float32,
+                        device=i["a"].device)
+        return lambda: launch_rglru_scan(i["a"], i["bx"], i["h0"], h)
+
+    def ssd_bare(i):
+        x, al, bm, cm = i["xbar"], i["a_log"], i["Bm"], i["Cm"]
+        b, s, h, p = x.shape
+        q = chunk_len(s, i["chunk"])
+        pad = (-s) % q
+        if pad:
+            x = F.pad(x, (0, 0, 0, 0, 0, pad))
+            al = F.pad(al, (0, 0, 0, pad))
+            bm, cm = (F.pad(t, (0, 0, 0, pad)) for t in (bm, cm))
+        y = torch.empty_like(x)
+        hout = torch.empty((b, h, bm.shape[-1], p), dtype=torch.float32,
+                           device=x.device)
+        return lambda: launch_ssd_scan(x, al, bm, cm, y, hout, q)
+
+    def flash_bare(i):
+        o = torch.empty_like(i["q"])
+        return lambda: launch_flash_attention(i["q"], i["k"], i["v"], o,
+                                              i["causal"], i["k"].shape[2])
+
+    return {
+        "rglru_scan": (
+            lambda i: rglru_scan(i["a"], i["bx"], i["h0"]),
+            lambda i: rglru_scan_ref(i["a"], i["bx"], i["h0"]), rglru_bare),
+        "ssd_scan": (
+            lambda i: ssd_chunk_scan(i["xbar"], i["a_log"], i["Bm"], i["Cm"],
+                                     i["chunk"]),
+            lambda i: ssd_chunk_scan_ref(i["xbar"], i["a_log"], i["Bm"],
+                                         i["Cm"], chunk=i["chunk"]),
+            ssd_bare),
+        "flash_attention": (
+            lambda i: flash_attention(i["q"], i["k"], i["v"], i["causal"]),
+            lambda i: flash_attention_ref(i["q"], i["k"], i["v"],
+                                          i["causal"]), flash_bare),
+    }
+
+
+def _lm_dtype(name, inp) -> str:
+    first = inp[{"rglru_scan": "a", "ssd_scan": "xbar",
+                 "flash_attention": "q"}[name]]
+    return str(first.dtype).replace("torch.", "")
+
+
+def _lm_close(torch, got, want, tol):
+    """(max |difference|, every element within ``tol`` absolute plus
+    ``tol`` relative and finite) over the outputs."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want), (len(got), len(want))
+    err, ok = 0.0, True
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, (
+            g.shape, w.shape, g.dtype, w.dtype)
+        g, w = g.float(), w.float()
+        diff = (g - w).abs()
+        err = max(err, float(diff.max()) if diff.numel() else 0.0)
+        ok &= bool(torch.isfinite(g).all()) and bool(
+            (diff <= tol + tol * w.abs()).all())
+    return err, ok
+
+
+def _time_fn(torch, fn, reps) -> float:
+    """Median CUDA-event time of ``fn()``, after one warm-up call."""
+    fn()
+    pairs = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def _lm_bound(np, name, inp):
+    """(bound_ms, bound_by, flops, bytes): the larger of the bytes the
+    function must move (each input read once, each output written once)
+    over 3.35 TB/s and its floating-point operations over 989 TFLOP/s
+    (the H100 SXM's dense bf16 tensor-core peak), counted from these
+    inputs; the masked-out halves of causal products are not counted."""
+    if name == "rglru_scan":
+        a = inp["a"]
+        b, s, w = a.shape
+        nbytes = 2 * a.element_size() * b * s * w + 4 * b * s * w
+        nbytes += 4 * b * w if inp["h0"] is not None else 0
+        flops = 2 * b * s * w
+    elif name == "ssd_scan":
+        from repro_torch.kernels.ssd_scan.ref import chunk_len
+        x = inp["xbar"]
+        b, s, h, p = x.shape
+        n = inp["Bm"].shape[-1]
+        e = x.element_size()
+        q = chunk_len(s, inp["chunk"])
+        nc = -(-s // q)
+        nbytes = (2 * e * b * s * h * p + 4 * b * s * h + 2 * e * b * s * n
+                  + 4 * b * h * n * p)
+        tri = q * (q + 1) // 2
+        # C B^T and (att) x on the lower triangle, C H and the state
+        flops = 2 * b * h * nc * (tri * n + tri * p + 2 * q * n * p)
+    else:
+        q, k = inp["q"], inp["k"]
+        b, h, sq, d = q.shape
+        kv, skv = k.shape[1], k.shape[2]
+        rows = np.arange(sq, dtype=np.int64)
+        pairs = int(np.minimum(rows + 1, skv).sum()) if inp["causal"] \
+            else sq * skv
+        flops = 4 * b * h * d * pairs
+        nbytes = q.element_size() * (2 * b * h * sq * d + 2 * b * kv * skv * d)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", flops, nbytes)
+
+
+def _lm_random(torch, np, rng, name, dev, dtype, **shape):
+    """Random inputs of one LM kernel, made with numpy from ``rng``."""
+    dt = getattr(torch, dtype)
+
+    def t(a, dtype=dt):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+            dev, dtype)
+    if name == "rglru_scan":
+        b, s, w = shape["b"], shape["s"], shape["w"]
+        return dict(a=t(1 / (1 + np.exp(-rng.standard_normal((b, s, w))))),
+                    bx=t(rng.standard_normal((b, s, w)) * 0.2),
+                    h0=(t(rng.standard_normal((b, w)) * 0.1, torch.float32)
+                        if shape["h0"] else None))
+    if name == "ssd_scan":
+        b, s, h, p, n = (shape[k] for k in "bshpn")
+        return dict(xbar=t(rng.standard_normal((b, s, h, p)) * 0.5),
+                    a_log=t(-np.logaddexp(rng.standard_normal((b, s, h)), 0),
+                            torch.float32),
+                    Bm=t(rng.standard_normal((b, s, n)) * 0.3),
+                    Cm=t(rng.standard_normal((b, s, n)) * 0.3),
+                    chunk=shape["chunk"])
+    b, h, kv, sq, skv, d = (shape[k] for k in ("b", "h", "kv", "sq", "skv",
+                                               "d"))
+    return dict(q=t(rng.standard_normal((b, h, sq, d))),
+                k=t(rng.standard_normal((b, kv, skv, d))),
+                v=t(rng.standard_normal((b, kv, skv, d))),
+                causal=shape["causal"])
+
+
+LM_SMALL = {
+    "rglru_scan": [dict(b=2, s=37, w=100, h0=True),
+                   dict(b=1, s=300, w=96, h0=False),
+                   dict(b=3, s=64, w=64, h0=True),
+                   dict(b=2, s=256, w=4096, h0=False),
+                   dict(b=1, s=1, w=7, h0=True)],
+    "ssd_scan": [dict(b=2, s=96, h=3, p=16, n=32, chunk=32),
+                 dict(b=2, s=100, h=2, p=16, n=32, chunk=32),   # padded
+                 dict(b=1, s=5, h=2, p=16, n=16, chunk=16),     # q = S
+                 dict(b=1, s=64, h=1, p=8, n=16, chunk=16),
+                 # the full-width tile: f32 splits (Q, Q) into row tiles
+                 dict(b=1, s=300, h=4, p=64, n=128, chunk=128)],
+    "flash_attention": [
+        dict(b=1, h=4, kv=4, sq=128, skv=128, d=64, causal=True),
+        dict(b=2, h=4, kv=2, sq=200, skv=200, d=64, causal=True),
+        dict(b=1, h=8, kv=1, sq=256, skv=256, d=128, causal=True),
+        dict(b=2, h=4, kv=2, sq=160, skv=160, d=96, causal=False),
+        dict(b=1, h=2, kv=2, sq=64, skv=64, d=32, causal=True),
+        dict(b=1, h=2, kv=1, sq=40, skv=40, d=16, causal=True),
+        dict(b=1, h=4, kv=2, sq=50, skv=200, d=64, causal=False),
+        dict(b=1, h=4, kv=1, sq=200, skv=200, d=256, causal=True),
+        # D not a multiple of 16: the FMA variant in bf16 too
+        dict(b=1, h=3, kv=1, sq=70, skv=70, d=40, causal=True)],
+}
+
+
+def check_lm_small(torch, np, dev):
+    """Phase 13a: each LM kernel against its plain version on the card on
+    small random cases (odd and padded S and W, S below one chunk or
+    block, h0 on and off, GQA and MQA, D from 16 to 256, causal and
+    full, a kv longer than q), in float32 and bfloat16."""
+    from repro_torch.kernels import LAUNCHES
+    calls = _lm_ops()
+    rng = np.random.default_rng(20270)
+    errs = {}
+    cases = 0
+    for name, shapes in LM_SMALL.items():
+        kernel, plain, _ = calls[name]
+        for shape in shapes:
+            for dtype in ("float32", "bfloat16"):
+                inp = _lm_random(torch, np, rng, name, dev, dtype, **shape)
+                before = LAUNCHES[name]
+                got = kernel(inp)
+                assert LAUNCHES[name] == before + 1, name
+                err, ok = _lm_close(torch, got, plain(inp), LM_TOL[dtype])
+                if not ok:
+                    raise AssertionError(
+                        f"{name} differs from its plain version on "
+                        f"{shape} {dtype}: max |err| {err}")
+                errs[name] = max(errs.get(name, 0.0), err)
+                cases += 1
+    torch.cuda.synchronize()
+    emit("lm_kernels_small", cases=cases, kernels=sorted(calls),
+         max_abs_err=errs, tolerance=LM_TOL)
+
+
+def _lm_entry(torch, np, name, inp, note=None):
+    """The kernels-line entry of ``name`` on the inputs ``inp``: held
+    against its plain version, timed (bare launch, wrapper, plain) and
+    bounded; flash also against scaled_dot_product_attention."""
+    kernel, plain, bare = _lm_ops()[name]
+    dtype = _lm_dtype(name, inp)
+    got = kernel(inp)
+    want = plain(inp)
+    err, ok = _lm_close(torch, got, want, LM_TOL[dtype])
+    if not ok:
+        raise AssertionError(f"{name} differs from its plain version at "
+                             f"the main-path shape: max |err| {err}")
+    bound_ms, bound_by, flops, nbytes = _lm_bound(np, name, inp)
+    launch = bare(inp)
+    ms = _time_fn(torch, launch, 20)
+    wrapper_ms = _time_fn(torch, lambda: kernel(inp), 20)
+    plain_ms = _time_fn(torch, lambda: plain(inp), 5)
+    ms2 = _time_fn(torch, launch, 20)
+    first = inp[{"rglru_scan": "a", "ssd_scan": "xbar",
+                 "flash_attention": "q"}[name]]
+    entry = dict(
+        name=name, route="cuda", source=f"{LM_KSRC}/{name}.cu",
+        replaces=LM_REPLACES[name], launches=None, max_abs_err=err,
+        ms=min(ms, ms2), plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None, shape=list(first.shape),
+        dtype=dtype, tolerance=LM_TOL[dtype], flops=flops, bytes=nbytes,
+        ms_repeats=[ms, ms2], wrapper_ms=wrapper_ms)
+    if name == "flash_attention":
+        entry["kv_shape"] = list(inp["k"].shape)
+        entry.update(_library_flash(torch, inp, got))
+    if name == "ssd_scan":
+        entry["n"] = int(inp["Bm"].shape[-1])
+        entry["chunk"] = int(inp["chunk"])
+        entry.update(_ssd_f64(torch, inp, got, want))
+    if note:
+        entry["note"] = note
+    return entry
+
+
+def _ssd_f64(torch, inp, got, want):
+    """The kernel's and the plain version's largest differences from the
+    plain version evaluated in float64 on the same inputs; the kernel's
+    must be within the tolerance of its type."""
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunk_scan_ref
+    truth = ssd_chunk_scan_ref(*(inp[k].double() for k in (
+        "xbar", "a_log", "Bm", "Cm")), chunk=inp["chunk"])
+    tol = LM_TOL[_lm_dtype("ssd_scan", inp)]
+    out = {}
+    for who, res in (("kernel", got), ("plain", want)):
+        err, ok = _lm_close(torch, tuple(r.double() for r in res), truth,
+                            tol)
+        out[f"{who}_f64_max_abs_err"] = err
+        if who == "kernel" and not ok:
+            raise AssertionError(f"ssd_scan is further than {tol} from "
+                                 f"a float64 evaluation: {err}")
+    return out
+
+
+def _library_flash(torch, inp, got):
+    """``scaled_dot_product_attention`` on the same inputs (one call,
+    causal at the start like the kernel, GQA by ``enable_gqa``): its time
+    and its largest difference from the kernel's output."""
+    import torch.nn.functional as F
+    q, k, v, causal = inp["q"], inp["k"], inp["v"], inp["causal"]
+    assert q.shape[2] == k.shape[2] or not causal
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                              enable_gqa=True)
+    lib = library()
+    err, ok = _lm_close(torch, lib, got, LM_TOL[_lm_dtype(
+        "flash_attention", inp)])
+    if not ok:
+        raise AssertionError(f"scaled_dot_product_attention differs from "
+                             f"flash_attention: max |err| {err}")
+    return dict(library_ms=_time_fn(torch, library, 20),
+                library_call="F.scaled_dot_product_attention(is_causal, "
+                             "enable_gqa=True)",
+                library_max_abs_err=err)
+
+
+def _lm_prompts(np, cfg, lo, hi, n=8, seed=0):
+    """``n`` prompts of random tokens, their lengths drawn in [lo, hi]."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(lo, hi + 1, n)
+    return [rng.integers(0, cfg.vocab_size, int(m)).astype(np.int32)
+            for m in lens]
+
+
+def lm_serve_phase(torch, np, arch, capture_attention=False):
+    """Phases 14 and 15: ``arch`` at full width and depth, random weights
+    from a seeded generator on the card, bf16 compute, through
+    ``ServingEngine`` (4 slots, max_len 4,096, 8 prompts of seeded random
+    lengths and tokens, 16 greedy tokens each).  Gates: every request
+    done with 16 tokens, every logit finite, exactly as many launches of
+    the arch's kernel in each prefill as it has layers of that kind.
+    Returns (launches of the three LM kernels in the
+    run, the inputs of the kernel's first call, and — with
+    ``capture_attention`` — q, k, v and the output of the first
+    attention layer of a separate 2,048-token prefill)."""
+    import gc
+
+    import repro_torch.models.layers as layers_mod
+    import repro_torch.models.rglru as rglru_mod
+    import repro_torch.models.ssm as ssm_mod
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import Model
+    from repro_torch.serving import Request, ServeConfig, ServingEngine
+
+    cfg = get_arch(arch)
+    kernel, per_prefill, lo, hi = LM_SERVE[arch]
+    assert cfg.layer_kinds().count(
+        {"rglru_scan": "rec", "ssd_scan": "ssm"}[kernel]) == per_prefill
+    prompts = _lm_prompts(np, cfg, lo, hi)
+    lens = np.array([len(p) for p in prompts])
+    if kernel == "rglru_scan":
+        # a prompt past the window (the cache roll), one off the
+        # blockwise attention's 512 grid
+        assert (lens > cfg.window).any() and (lens % 512).any(), lens
+    else:
+        assert (lens % cfg.ssm_chunk).any(), lens   # a padded last chunk
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    assert model.device.type == CARD
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+
+    stats = dict(prefill_ms=[], prefill_launches=[], decode_ms=[])
+    finite = []
+    orig_prefill, orig_decode = model.prefill, model.decode_step
+
+    def prefill(tokens, pad_to=None):
+        torch.cuda.synchronize()
+        before = LAUNCHES[kernel]
+        t = time.perf_counter()
+        last, caches = orig_prefill(tokens, pad_to=pad_to)
+        torch.cuda.synchronize()
+        stats["prefill_ms"].append((time.perf_counter() - t) * 1e3)
+        stats["prefill_launches"].append(LAUNCHES[kernel] - before)
+        finite.append(torch.isfinite(last).all())
+        return last, caches
+
+    def decode_step(token, caches, cur_index):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, caches = orig_decode(token, caches, cur_index)
+        torch.cuda.synchronize()
+        stats["decode_ms"].append((time.perf_counter() - t) * 1e3)
+        finite.append(torch.isfinite(logits).all())
+        return logits, caches
+
+    model.prefill, model.decode_step = prefill, decode_step
+    # keep the inputs of the kernel wrapper's first call in the run
+    mod, attr = ((rglru_mod, "rglru_scan") if kernel == "rglru_scan"
+                 else (ssm_mod, "ssd_chunk_scan"))
+    wrapper, captured = getattr(mod, attr), {}
+    names = (("a", "bx", "h0") if kernel == "rglru_scan"
+             else ("xbar", "a_log", "Bm", "Cm"))
+
+    def keep(*args, **kw):
+        if not captured:
+            captured.update({k: (a.clone() if isinstance(a, torch.Tensor)
+                                 else a) for k, a in zip(names, args)})
+            if kernel == "ssd_scan":
+                captured["chunk"] = kw["chunk"]
+            else:
+                captured.setdefault("h0", None)
+        return wrapper(*args, **kw)
+
+    eng = ServingEngine(model, ServeConfig(batch=4, max_len=4096))
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=16)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    setattr(mod, attr, keep)
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+    finally:
+        setattr(mod, attr, wrapper)
+    assert all(r.done and len(r.out_tokens) == 16 for r in reqs), [
+        (r.rid, r.done, len(r.out_tokens)) for r in reqs]
+    assert bool(torch.stack(finite).all()), "a logit is not finite"
+    assert stats["prefill_launches"] == [per_prefill] * len(reqs), stats[
+        "prefill_launches"]
+    assert launches[kernel] == per_prefill * len(reqs), launches
+    peak = torch.cuda.max_memory_allocated()
+    tokens = sum(len(r.out_tokens) for r in reqs)
+    decode_tokens = tokens - len(reqs)
+    emit(f"lm_serve_{arch.split('-')[0]}", arch=arch,
+         layers=cfg.num_layers, layer_kinds={
+             k: cfg.layer_kinds().count(k) for k in set(cfg.layer_kinds())},
+         d_model=cfg.d_model, parameters=n_params,
+         config_param_count=cfg.param_count(), param_bytes=param_bytes,
+         param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
+         init_seconds=init_s, slots=4, max_len=4096, requests=len(reqs),
+         prompt_lens=[len(p) for p in prompts], new_tokens=16,
+         ticks=eng.ticks, engine_wall_seconds=wall,
+         tokens_per_sec=tokens / wall,
+         decode_tokens_per_sec=decode_tokens / (sum(stats["decode_ms"])
+                                                / 1e3),
+         prefill_ms=stats["prefill_ms"],
+         prefill_tokens_per_sec=sum(len(p) for p in prompts)
+         / (sum(stats["prefill_ms"]) / 1e3),
+         decode_ms_per_tick=statistics.median(stats["decode_ms"]),
+         decode_ms_per_tick_mean=statistics.fmean(stats["decode_ms"]),
+         peak_memory_bytes=peak, launches=launches,
+         launches_per_prefill=stats["prefill_launches"],
+         first_tokens=[r.out_tokens[:4] for r in reqs[:2]])
+    attn = None
+    if capture_attention:
+        attn = _capture_attention(torch, np, model, layers_mod)
+    del model, eng, reqs, orig_prefill, orig_decode
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, captured, attn
+
+
+def _capture_attention(torch, np, model, layers_mod):
+    """q, k, v (after RoPE) and the output of the first attention layer of
+    a 2,048-token prefill, in the kernel's (B, heads, S, D) layout.  At S
+    <= window the layer's local attention is causal attention."""
+    orig, store = layers_mod._sdpa_blockwise, {}
+
+    def keep(q, k, v, mask_kind, window, compute_dtype, *rest):
+        out = orig(q, k, v, mask_kind, window, compute_dtype, *rest)
+        if not store:
+            assert mask_kind == "local" and q.shape[1] <= window
+            store.update(q=q.transpose(1, 2).contiguous(),
+                         k=k.transpose(1, 2).contiguous(),
+                         v=v.transpose(1, 2).contiguous(),
+                         layer_out=out.transpose(1, 2).contiguous())
+        return out
+    tokens = np.random.default_rng(1).integers(
+        0, model.cfg.vocab_size, (1, 2048))
+    layers_mod._sdpa_blockwise = keep
+    try:
+        model.prefill(torch.from_numpy(tokens).to(model.device))
+    finally:
+        layers_mod._sdpa_blockwise = orig
+    store["causal"] = True
+    return store
+
+
+def lm_kernels_phase(torch, np, captured):
+    """Phase 13b: each LM kernel on the inputs the serving phases gave
+    it, held, timed and bounded: rglru_scan from the recurrentgemma-9b
+    prefill, ssd_scan from the mamba2-2.7b prefill, flash_attention on
+    q/k/v of a recurrentgemma-9b attention layer (also held against the
+    layer's own attention output) and at a yi-6b train_4k-like shape."""
+    rg = captured["rglru_scan"]
+    entries = [_lm_entry(torch, np, "rglru_scan", rg)]
+    emit("kernel", **entries[-1])
+    entries.append(_lm_entry(torch, np, "ssd_scan", captured["ssd_scan"]))
+    emit("kernel", **entries[-1])
+    attn = captured["attention"]
+    layer_out = attn.pop("layer_out")
+    entry = _lm_entry(torch, np, "flash_attention", attn,
+                      note="q/k/v of recurrentgemma-9b's first attention "
+                           "layer at a 2,048-token prefill")
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    err, ok = _lm_close(torch, flash_attention(attn["q"], attn["k"],
+                                               attn["v"], True),
+                        layer_out, LM_TOL["bfloat16"])
+    if not ok:
+        raise AssertionError(f"flash_attention differs from the layer's "
+                             f"attention output: max |err| {err}")
+    entry["layer_attention_max_abs_err"] = err
+    rng = np.random.default_rng(20271)
+    yi = _lm_random(torch, np, rng, "flash_attention", attn["q"].device,
+                    "bfloat16", causal=True, **FLASH_TRAIN_SHAPE)
+    entry["train_4k_shape"] = _lm_entry(
+        torch, np, "flash_attention", yi,
+        note="yi-6b train_4k-like shape, random bf16 inputs")
+    emit("kernel", **entry)
+    entries.append(entry)
+    return entries
+
+
+def lm_parity_phase(torch, np):
+    """Phase 16: each family's smoke() config in float32 through
+    ServingEngine on the card and on the CPU, same weights (6 prompts of
+    3-11 tokens, 3 slots, 8 new tokens): identical tokens, prefill and
+    decode logits within 2e-4; then ``python -m repro_torch.launch.serve
+    --arch recurrentgemma-9b`` once on the card."""
+    import copy
+    from dataclasses import replace
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+    from repro_torch.serving import Request, ServeConfig, ServingEngine
+
+    for arch in LM_FAMILIES:
+        t0 = time.perf_counter()
+        cfg = replace(get_arch(arch).smoke(), compute_dtype="float32",
+                      param_dtype="float32")
+        cpu = Model(cfg, device="cpu", seed=0)
+        models = {"cpu": cpu, CARD: copy.deepcopy(cpu).to(CARD)}
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in (5, 9, 7, 3, 11, 6)]
+        tokens, logits = {}, {}
+        for dev, model in models.items():
+            logits[dev] = []
+            for entry in ("prefill", "decode_step"):
+                orig = getattr(model, entry)
+
+                def rec(*args, _orig=orig, _seen=logits[dev], **kw):
+                    out = _orig(*args, **kw)
+                    _seen.append(out[0].cpu())
+                    return out
+                setattr(model, entry, rec)
+            eng = ServingEngine(model, ServeConfig(batch=3, max_len=64))
+            reqs = [Request(rid=i, prompt=p, max_new_tokens=8)
+                    for i, p in enumerate(prompts)]
+            for r in reqs:
+                eng.submit(r)
+            eng.run()
+            assert all(r.done for r in reqs)
+            tokens[dev] = [r.out_tokens for r in reqs]
+        assert models[CARD].device.type == CARD
+        assert tokens["cpu"] == tokens[CARD], arch
+        assert len(logits["cpu"]) == len(logits[CARD])
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(logits["cpu"], logits[CARD]))
+        for a, b in zip(logits["cpu"], logits[CARD]):
+            np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=2e-4,
+                                       atol=2e-4, err_msg=arch)
+        emit("lm_parity", arch=arch, requests=len(prompts),
+             calls_compared=len(logits["cpu"]), tokens_identical=True,
+             max_abs_logit_diff=err, tolerance=2e-4,
+             seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve",
+         *LM_LAUNCHER_ARGS], capture_output=True, text=True, env=env,
+        cwd=ROOT, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    assert proc.returncode == 0 and lines[-1].startswith("device " + CARD), \
+        proc.stdout[-2000:] + proc.stderr[-2000:]
+    emit("lm_launcher", command=" ".join(
+        ["python -m repro_torch.launch.serve", *LM_LAUNCHER_ARGS]),
+         summary=lines[-2], device=lines[-1],
+         seconds=time.perf_counter() - t0)
+
+
+def lm_phases(torch, np, dev):
+    """Phases 13-16; returns the kernels-line entries of the three LM
+    kernels with their launches on the two serving paths."""
+    check_lm_small(torch, np, dev)
+    captured = {}
+    rg, captured["rglru_scan"], captured["attention"] = lm_serve_phase(
+        torch, np, "recurrentgemma-9b", capture_attention=True)
+    mb, captured["ssd_scan"], _ = lm_serve_phase(torch, np, "mamba2-2.7b")
+    entries = lm_kernels_phase(torch, np, captured)
+    captured.clear()
+    torch.cuda.empty_cache()
+    launches = {"rglru_scan": rg["rglru_scan"] + mb["rglru_scan"],
+                "ssd_scan": rg["ssd_scan"] + mb["ssd_scan"],
+                # no model calls flash attention (nor the JAX package's)
+                "flash_attention": rg["flash_attention"]
+                + mb["flash_attention"]}
+    assert launches["flash_attention"] == 0, launches
+    for e in entries:
+        e["launches"] = launches[e["name"]]
+    lm_parity_phase(torch, np)
+    return entries
 
 
 if __name__ == "__main__":

@@ -1,7 +1,9 @@
-"""Build and load the hand-written CUDA kernels.
+"""Build and load the hand-written CUDA kernels of the whole port.
 
-The sources in ``csrc/`` have a plain C interface.  At the first CUDA
-use they are compiled with ``nvcc`` for ``sm_90a`` — one ``nvcc`` per
+The sources have a plain C interface and live in two directories: the
+causal-broadcast engines' kernels in ``csrc/`` beside this module, and
+the LM kernels in ``repro_torch/kernels/csrc/`` (``CSRC_DIRS``).  At the
+first CUDA use they are compiled with ``nvcc`` for ``sm_90a`` — one ``nvcc`` per
 source, all started together — and linked into one shared library,
 which is loaded with :mod:`ctypes`.  The library lands in
 ``build/repro_torch_kernels/<hash>/`` at the root of the checkout, keyed
@@ -23,9 +25,11 @@ from pathlib import Path
 from typing import Optional
 
 __all__ = ["load_library", "build_library", "find_nvcc", "CSRC",
-           "BUILD_ROOT", "NVCC_FLAGS"]
+           "CSRC_DIRS", "BUILD_ROOT", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+# the engines' kernels, then the LM kernels (repro_torch/kernels/csrc)
+CSRC_DIRS = (CSRC, Path(__file__).resolve().parents[3] / "kernels" / "csrc")
 # <checkout>/src/repro_torch/core/vecsim/kernels/_build.py -> <checkout>
 BUILD_ROOT = Path(__file__).resolve().parents[5] / "build" / \
     "repro_torch_kernels"
@@ -35,6 +39,7 @@ LIB_NAME = "librepro_torch_kernels.so"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry point -> argument types; every entry point returns the
 # cudaError_t of cudaGetLastError() after its launch.
 _SIGNATURES = {
@@ -45,6 +50,10 @@ _SIGNATURES = {
     "rt_latency_hist": [_P] * 4 + [_I] * 4 + [_P],
     "rt_slot_frontier": [_P] * 8 + [_I] * 4 + [_P],
     "rt_ring_apply": [_P] * 3 + [_I] * 3 + [_P],
+    # the LM kernels (repro_torch/kernels/csrc)
+    "rt_rglru_scan": [_P] * 4 + [_I] * 4 + [_P],
+    "rt_ssd_scan": [_P] * 6 + [_I] * 7 + [_P],
+    "rt_flash_attention": [_P] * 4 + [_I] * 9 + [_F, _P],
 }
 
 
@@ -60,7 +69,8 @@ def find_nvcc() -> Optional[str]:
 
 
 def _sources():
-    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+    return ([p for d in CSRC_DIRS for p in sorted(d.glob("*.cu"))],
+            [p for d in CSRC_DIRS for p in sorted(d.glob("*.cuh"))])
 
 
 def _digest() -> str:
@@ -74,7 +84,7 @@ def _digest() -> str:
 
 def build_library(nvcc: Optional[str] = None,
                   build_root: Path = BUILD_ROOT) -> Path:
-    """Compile ``csrc/*.cu`` into the shared library (if this source hash
+    """Compile the ``*.cu`` of ``CSRC_DIRS`` into the shared library (if this source hash
     has not been built yet) and return its path.  Raises
     :class:`RuntimeError` when ``nvcc`` is missing or a compile fails,
     with the compiler's output."""

@@ -1,0 +1,60 @@
+"""Wrapper of the chunked SSD scan kernel (``csrc/ssd_scan.cu``), with
+the contract of the JAX package's ``ssd_chunk_scan`` op: the same
+inputs and outputs, chunk padding included.
+
+The kernel reads the op's own layouts — xbar (B, S, H, P), a_log (B, S,
+H), Bm and Cm (B, S, N) — so no transposed copy is made: a block finds
+its head's rows by stride, and B and C by batch row (shared by the
+heads, n_groups = 1)."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .. import common
+from .ref import chunk_len, ssd_chunk_scan_ref
+
+__all__ = ["ssd_chunk_scan", "launch_ssd_scan"]
+
+
+def launch_ssd_scan(xbar, a_log, Bm, Cm, y, hout, q: int):
+    """The bare launch on padded inputs (S a multiple of ``q``): unchecked,
+    uncounted, into ``y`` (B, S, H, P) and ``hout`` (B, H, N, P) f32."""
+    b, s, h, p = xbar.shape
+    n = Bm.shape[-1]
+    common.raise_on("ssd_scan", common.library().rt_ssd_scan(
+        xbar.data_ptr(), a_log.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+        y.data_ptr(), hout.data_ptr(), b, s // q, q, h, p, n,
+        common.DTYPE_CODE[xbar.dtype], common.stream(xbar.device)))
+
+
+def ssd_chunk_scan(xbar, a_log, Bm, Cm, chunk: int = 128):
+    """xbar (B,S,H,P) float32 or bfloat16; a_log (B,S,H) float32; Bm, Cm
+    (B,S,N) of xbar's type -> (y (B,S,H,P) of xbar's type, h_final
+    (B,H,N,P) float32).  The kernel on CUDA tensors, the plain version on
+    CPU tensors."""
+    if xbar.dim() != 4:
+        raise ValueError(f"xbar must be (B, S, H, P), got "
+                         f"{tuple(xbar.shape)}")
+    dev = xbar.device
+    b, s, h, p = xbar.shape
+    common.check("xbar", xbar, (b, s, h, p), dev)
+    common.check("a_log", a_log, (b, s, h), dev, torch.float32)
+    n = Bm.shape[-1] if Bm.dim() == 3 else -1
+    common.check("Bm", Bm, (b, s, n), dev, xbar.dtype)
+    common.check("Cm", Cm, (b, s, n), dev, xbar.dtype)
+    if not common.route(dev):
+        return ssd_chunk_scan_ref(xbar, a_log, Bm, Cm, chunk=chunk)
+    q = chunk_len(s, chunk)
+    if s % q:
+        pad = q - s % q
+        xbar = F.pad(xbar, (0, 0, 0, 0, 0, pad))
+        a_log = F.pad(a_log, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+    y = torch.empty_like(xbar)
+    hout = torch.empty((b, h, n, p), dtype=torch.float32, device=dev)
+    launch_ssd_scan(xbar, a_log, Bm, Cm, y, hout, q)
+    common.LAUNCHES["ssd_scan"] += 1
+    return y[:, :s], hout

@@ -1,10 +1,12 @@
 """Import guard of the port: ``src/repro_torch`` and ``chip_smoke.py``
 import neither JAX nor anything of the JAX package ``repro`` — checked
 statically over every module (the telemetry package ``repro_torch.obs``,
-the live serving package ``core/vecsim/live`` and the sharded engine
-``core/vecsim/shard`` included), and by importing the port and running
-a small windowed CPU run, a small live CPU run with telemetry and a
-small sharded CPU run in a child interpreter where both are blocked."""
+the live serving package ``core/vecsim/live``, the sharded engine
+``core/vecsim/shard`` and the LM substrate's ``configs``, ``models``,
+``kernels``, ``serving`` and ``launch`` included), and by importing the
+port and running a small windowed CPU run, a small live CPU run with
+telemetry, a small sharded CPU run and a smoke-size LM serving run in a
+child interpreter where both are blocked."""
 
 import ast
 import os
@@ -21,7 +23,9 @@ def _port_files():
     files = sorted(port.rglob("*.py"))
     assert len(files) >= 30
     for package in ("obs", "core/vecsim/live", "core/vecsim/kernels",
-                    "core/vecsim/shard", "api"):
+                    "core/vecsim/shard", "api", "configs", "models",
+                    "kernels", "kernels/rglru_scan", "kernels/ssd_scan",
+                    "kernels/flash_attention", "serving", "launch"):
         assert any(f.parent == port / package for f in files), package
     return files + [REPO / "chip_smoke.py"]
 
@@ -68,6 +72,18 @@ for scan in ("on", "off"):
     sh = execute_sharded(scn, 16, device="cpu", seg_len=4, collect="full",
                          scan=scan)
     assert (sh.delivered == res.delivered).all() and sh.stats == res.stats
+import numpy as np
+import repro_torch.launch.serve
+from repro_torch.configs import get_arch
+from repro_torch.models import build_model
+from repro_torch.serving import Request, ServeConfig, ServingEngine
+for arch in ("mamba2-2.7b", "recurrentgemma-9b"):
+    eng = ServingEngine(build_model(get_arch(arch).smoke(), device="cpu"),
+                        ServeConfig(batch=2, max_len=32))
+    for i in range(3):
+        eng.submit(Request(rid=i, prompt=np.arange(3 + i, dtype=np.int32),
+                           max_new_tokens=4))
+    assert len(eng.run()) == 3
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro")
                 and sys.modules[m] is not None)
