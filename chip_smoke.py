@@ -11,14 +11,17 @@ non-zero:
      byte for byte: small random inputs (odd and single-column windows,
      an all-retired window, a grid taller than 65,535 row blocks), the
      latency histogram on latencies that reach all 32 buckets and with
-     more than 65,535 row chunks, then the inputs the main path gives
-     each kernel, captured from short runs at the main-path shapes
+     more than 65,535 row chunks, fused_sweep's pull on tables with -1,
+     out-of-range and duplicate targets, a row of more than 32 in-edges,
+     K of 1, 3, 8 and 17 and mixed delays (and its inverse table rebuilt
+     after an edit of adj), then the inputs the main path gives each
+     kernel, captured from short runs at the main-path shapes
      (N=10,000 x W=16,384 x K=8 sustained traffic; N=50,000 x W=140 x
      K=17 paper-scale churn; N=65,536 x W=1,024 serving), with the time
      of the bare kernel launch, of the wrapper around it, of the plain
-     version, and the bound; fused_sweep also with the time of its plane
-     pass alone (the deliver_sweep kernel on its inputs, no forward
-     scatter);
+     version, and the bound; fused_sweep at the sustained and at the
+     serving shape, each also with the time of its plane pass alone
+     (pass 1: deliver, counts and forward mask, no forward);
   3. sustained — the sustained-traffic configuration (N=10,000, k-regular
      K=8, Poisson 1,000 broadcasts a round, 1,000,000 broadcasts, window
      16,384, seg_len 8) through ``repro_torch.api.run``: full delivery,
@@ -77,7 +80,8 @@ non-zero:
  13. lm_kernels — rglru_scan, ssd_scan and flash_attention against
      their plain versions on the card, within float32 2e-5 and bfloat16
      2e-2: small random cases first (odd and padded S and W, S below a
-     chunk or block, h0 on and off, GQA/MQA, D 16-256, both types),
+     chunk or block, h0 on and off, H/KV of 1 to 80, kv padded past
+     seq_kv, q longer than kv, D 16-256, both types),
      then (after phases 14-15) the inputs the serving runs gave them and
      flash on q/k/v of a recurrentgemma-9b attention layer at a
      2,048-token prefill (also held against the layer's own attention
@@ -128,6 +132,9 @@ CORE_OPS_PER_S = 67e12
 
 SUSTAINED_MESSAGES = 1_000_000
 SERVE_MESSAGES = 200_000
+# the fused_sweep call of the 20,000-submission serving run whose inputs
+# are held: inside the arrival spike, with the window full
+SERVE_FUSED_CALL = 256
 # the device type the main-path runs must report
 CARD = "cuda"
 
@@ -294,6 +301,12 @@ def _ops():
 
     counts = zeros(("n", torch.int32), ("n", torch.int32))
 
+    def fused_out(inp):
+        # the counts, the forward mask and the inverse table of adj
+        n, w = inp["arr"].shape
+        return counts(inp) + [ops.forward_mask(n, w, inp["arr"].device),
+                              *ops.inverse_table(inp["adj"])]
+
     def hist_out(inp):
         # the output, and the card's copy of the host's column indices
         dev = inp["base"].device
@@ -314,7 +327,7 @@ def _ops():
         "fused_sweep": (ops.fused_sweep, ref.fused_sweep_ref,
                         ("arr", "delivered", "crashed", "adj", "delay",
                          "fwd_ok", "is_app", "t"), ("arr", "delivered"),
-                        ops.launch_fused_sweep, counts),
+                        _launch_fused(3), fused_out),
         "deliver_sweep": (ops.deliver_sweep, ref.deliver_sweep_ref,
                           ("arr", "delivered", "crashed", "is_app", "t"),
                           ("delivered",), ops.launch_deliver_sweep, counts),
@@ -335,6 +348,18 @@ def _ops():
                          ("base", "delivered", "cols"), (),
                          launch_hist, hist_out),
     }
+
+
+def _launch_fused(passes):
+    """fused_sweep's bare launch in ``_ops``' argument order; ``passes=1``
+    is its plane pass alone."""
+    from repro_torch.core.vecsim.kernels import ops
+
+    def launch(arr, delivered, crashed, adj, delay, fwd_ok, is_app, t, napp,
+               nping, bits, in_ptr, in_slot):
+        ops.launch_fused_sweep(arr, delivered, crashed, delay, fwd_ok, is_app,
+                               t, napp, nping, bits, in_ptr, in_slot, passes)
+    return launch
 
 
 def _shard_ops():
@@ -538,6 +563,61 @@ def check_small(torch, np, dev):
     emit("kernels_small", cases=len(cases), kernels=sorted(calls),
          max_abs_err=0)
     check_hist_buckets(torch, np, dev)
+    check_fused_pull(torch, np, dev)
+
+
+def check_fused_pull(torch, np, dev):
+    """fused_sweep against its plain version on the tables its pull must
+    read right: targets -1, N and beyond (dropped), duplicate edges, one
+    row with more than 32 in-edges (the in-edge batches), K of 1, 8 and
+    17, mixed delays, windows that are not a multiple of 4 or 32, an
+    all-retired window; and its inverse table rebuilt after an in-place
+    edit of adj."""
+    from repro_torch.core.vecsim.kernels import ops
+    kernel, plain, names, inplace = _ops()["fused_sweep"][:4]
+    rng = np.random.default_rng(20263)
+    cases = max_in = 0
+    for n, w, k in ((40, 33, 1), (64, 257, 8), (50, 31, 17), (200, 300, 17),
+                    (300, 1, 8), (129, 1000, 3)):
+        inp = _random_inputs(torch, np, rng, n, w, k, dev)
+        adj = rng.integers(-2, n + 3, (n, k))
+        adj[rng.random((n, k)) < 0.2] = -1
+        adj[:, 0] = np.where(rng.random(n) < 0.5, 0, adj[:, 0])  # > 32 in
+        adj[1] = adj[1, 0]                                        # duplicates
+        inp["adj"] = torch.from_numpy(adj.astype(np.int32)).to(dev)
+        inp["delay"] = torch.from_numpy(
+            rng.integers(1, 6, (n, k)).astype(np.int32)).to(dev)
+        ptr, _ = ops.build_inverse_table(inp["adj"])
+        max_in = max(max_in, int((ptr[1:] - ptr[:-1]).max()))
+        # most cells delivered at t, so that the forward has work
+        t = inp["t"]
+        inp["delivered"] = torch.where(
+            torch.from_numpy(rng.random((n, w)) < 0.5).to(dev),
+            torch.full_like(inp["delivered"], t), inp["delivered"])
+        variants = [{}, dict(arr=torch.full_like(inp["arr"], INF),
+                             delivered=torch.full_like(inp["delivered"], -1))]
+        for var in variants:
+            case = dict(inp, **var)
+            got = _call(torch, kernel, names, case, inplace)
+            want = plain(*[case[key] for key in names])
+            err = _max_err(torch, got, want)
+            if err:
+                raise AssertionError(f"fused_sweep differs from its plain "
+                                     f"version on ({n}, {w}, {k}) with "
+                                     f"{sorted(var)}: max |err| {err}")
+            cases += 1
+    # the cache follows an in-place edit of adj
+    adj = inp["adj"].clone()
+    first = ops.inverse_table(adj)
+    adj[0, 0] = 5
+    second = ops.inverse_table(adj)
+    if second is first or not all(torch.equal(a, b) for a, b in zip(
+            second, ops.build_inverse_table(adj))):
+        raise AssertionError("the inverse table was not rebuilt after an "
+                             "edit of adj")
+    torch.cuda.synchronize()
+    emit("kernels_fused_pull", cases=cases, k=[1, 3, 8, 17],
+         max_in_degree=max_in, max_abs_err=0)
 
 
 def check_hist_buckets(torch, np, dev):
@@ -630,23 +710,33 @@ def check_main_path(torch):
         undo()
     store.update(store2)
     # the serving shape, from the spike of a shorter serving run
-    store3, undo = _capture(torch, calls, {"latency_hist": 16})
+    store3, undo = _capture(torch, calls, {"latency_hist": 16,
+                                           "fused_sweep": SERVE_FUSED_CALL})
     try:
         run(serve_spec(messages=20_000))
     finally:
         undo()
+    serve_fused = store3.pop("fused_sweep")
     store.update(store3)
     # retire_scan on retire_reduce's inputs (no engine calls it)
     store["retire_scan"] = store["retire_reduce"]
 
-    entries = [_entry(torch, name, call, store[name], calls)
+    entries = [_entry(torch, name, call, store[name])
                for name, call in calls.items()]
+    # fused_sweep at the serving shape rides in its sustained entry
+    fused = next(e for e in entries if e["name"] == "fused_sweep")
+    fused["at_serve"] = {
+        key: v for key, v in _entry(torch, "fused_sweep", calls["fused_sweep"],
+                                    serve_fused).items()
+        if key in ("shape", "k", "ms", "ms_repeats", "wrapper_ms", "plain_ms",
+                   "bound_ms", "bound_by", "max_abs_err", "plane_pass_ms")}
+    fused["at_serve"]["round"] = int(serve_fused["t"])
     store.clear()
     torch.cuda.empty_cache()
     return entries
 
 
-def _entry(torch, name, call, inp, calls=None):
+def _entry(torch, name, call, inp):
     """The kernels-line entry of ``name`` on the inputs ``inp``: checked
     against its plain version, timed (bare launch, wrapper, plain) and
     bounded."""
@@ -675,11 +765,9 @@ def _entry(torch, name, call, inp, calls=None):
     if name == "latency_hist":
         entry["cols"] = int(inp["cols"].shape[0])
     if name == "fused_sweep":
-        # the same plane pass without the forward scatter: the
-        # deliver_sweep kernel on fused_sweep's inputs
-        _, _, dnames, dinplace, dlaunch, douts = calls["deliver_sweep"]
-        entry["plane_pass_ms"] = _time_ms(torch, dlaunch, dnames, inp,
-                                          dinplace, 20, douts)
+        # its plane pass alone (pass 1: deliver, counts, forward mask)
+        entry["plane_pass_ms"] = _time_ms(torch, _launch_fused(1), names,
+                                          inp, inplace, 20, outs)
     if name == "slot_frontier":
         entry["gating"] = bool(inp["gating"])
         entry["flushed"] = int(want[1])
@@ -1632,7 +1720,17 @@ LM_SMALL = {
         dict(b=1, h=4, kv=2, sq=50, skv=200, d=64, causal=False),
         dict(b=1, h=4, kv=1, sq=200, skv=200, d=256, causal=True),
         # D not a multiple of 16: the FMA variant in bf16 too
-        dict(b=1, h=3, kv=1, sq=70, skv=70, d=40, causal=True)],
+        dict(b=1, h=3, kv=1, sq=70, skv=70, d=40, causal=True),
+        # H / KV of 16, 4 and 1 packed into a block; S not a multiple of
+        # a tile, kv padded past seq_kv; fewer positions than a block; a
+        # group wider than a block (two head chunks); q longer than kv
+        dict(b=1, h=16, kv=1, sq=100, skv=100, d=256, causal=True),
+        dict(b=2, h=16, kv=4, sq=77, skv=77, d=128, causal=True),
+        dict(b=1, h=16, kv=16, sq=33, skv=33, d=64, causal=False),
+        dict(b=1, h=16, kv=1, sq=5, skv=5, d=128, causal=True),
+        dict(b=1, h=80, kv=1, sq=20, skv=20, d=32, causal=True),
+        dict(b=1, h=4, kv=1, sq=3, skv=300, d=128, causal=False),
+        dict(b=1, h=4, kv=1, sq=130, skv=70, d=64, causal=True)],
 }
 
 

@@ -43,7 +43,7 @@ _F = ctypes.c_float
 # C entry point -> argument types; every entry point returns the
 # cudaError_t of cudaGetLastError() after its launch.
 _SIGNATURES = {
-    "rt_fused_sweep": [_P] * 9 + [_I] * 4 + [_P],
+    "rt_fused_sweep": [_P] * 11 + [_I] * 5 + [_P],
     "rt_deliver_sweep": [_P] * 6 + [_I] * 3 + [_P],
     "rt_frontier_sweep": [_P] * 9 + [_I] * 4 + [_P],
     "rt_retire_reduce": [_P] * 9 + [_I] * 5 + [_P],

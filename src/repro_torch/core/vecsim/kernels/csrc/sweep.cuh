@@ -1,5 +1,5 @@
-// Shared layout of the per-round delivery sweeps (fused_sweep.cu,
-// deliver_sweep.cu, frontier_sweep.cu).
+// Shared layout of the per-round delivery sweeps (deliver_sweep.cu,
+// frontier_sweep.cu; fused_sweep.cu has its own two passes).
 //
 // The (N, W) planes are row-major int32: row p is a process, column m a
 // live message column.  One thread owns one (p, m) cell.  A block is
@@ -42,59 +42,6 @@ __device__ __forceinline__ void scatter_min(int32_t* arr, int q, int n,
                                             int w, int m, int32_t value) {
   if (q >= 0 && q < n) {
     atomicMin(arr + static_cast<size_t>(q) * w + m, value);
-  }
-}
-
-// Phase 5 and the per-row delivery counts; with kForward also the
-// gating-free forward scatter (phase 8) of the cells delivered at t.
-//
-// arr is updated in place by the scatter while other threads read it.
-// That is safe: every scattered value is t + delay >= t + 1, so no
-// concurrent atomicMin can change whether a cell equals t, which is the
-// only question this sweep asks of arr.  delivered is written only by
-// the thread that owns the cell, and only where it changes.
-template <bool kForward>
-__global__ void deliver_kernel(int32_t* arr, int32_t* __restrict__ delivered,
-                               const uint8_t* __restrict__ crashed,
-                               const uint8_t* __restrict__ is_app,
-                               const int32_t* __restrict__ adj,
-                               const int32_t* __restrict__ delay,
-                               const uint8_t* __restrict__ fwd_ok,
-                               int32_t* __restrict__ napp,
-                               int32_t* __restrict__ nping, int n, int w,
-                               int k, int t) {
-  const int m = blockIdx.x * kSweepCols + threadIdx.x;
-  const bool in = m < w;
-  const bool app = in && is_app[m] != 0;
-  for (int p = blockIdx.y * kSweepRows + threadIdx.y; p < n;
-       p += gridDim.y * kSweepRows) {
-    const size_t idx = static_cast<size_t>(p) * w + m;
-    bool now = false;  // the cell's delivery round is t after phase 5
-    if (in) {
-      const int32_t d = delivered[idx];
-      if (d < 0) {
-        if (crashed[p] == 0 && arr[idx] == t) {
-          delivered[idx] = t;
-          now = true;
-        }
-      } else {
-        now = d == t;
-      }
-    }
-    const unsigned ba = __ballot_sync(kFullMask, now && app);
-    const unsigned bp = __ballot_sync(kFullMask, now && !app);
-    if (threadIdx.x == 0) {
-      if (ba) atomicAdd(napp + p, __popc(ba));
-      if (bp) atomicAdd(nping + p, __popc(bp));
-    }
-    if (kForward && now) {
-      const size_t row = static_cast<size_t>(p) * k;
-      for (int kk = 0; kk < k; ++kk) {
-        if (fwd_ok[row + kk]) {
-          scatter_min(arr, adj[row + kk], n, w, m, t + delay[row + kk]);
-        }
-      }
-    }
   }
 }
 

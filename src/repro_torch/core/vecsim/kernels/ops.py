@@ -12,7 +12,10 @@ then runs, by the device the planes lie on:
 The sweeps update ``arr`` and ``delivered`` **in place** and return
 them: the span runner owns the planes, so no ``(N, W)`` copy is made per
 round (``csrc/sweep.cuh`` says why the in-place scatter is safe).
-Boolean inputs reach the kernels as ``uint8`` views.
+Boolean inputs reach the kernels as ``uint8`` views.  ``fused_sweep``
+pulls its forward through the inverse adjacency table of
+:func:`inverse_table`, built on the card and cached while ``adj`` is
+unchanged.
 
 :data:`LAUNCHES` counts the kernel launches of each wrapper; it moves
 only where a kernel is launched, never on the CPU path, so a run can
@@ -26,6 +29,7 @@ and output allocations; the engines never call them.
 
 from __future__ import annotations
 
+import weakref
 from typing import Dict, Tuple
 
 import torch
@@ -34,7 +38,8 @@ from . import _build
 from . import ref as _ref
 
 __all__ = ["LAUNCHES", "reset_launches", "fused_sweep", "deliver_sweep",
-           "frontier_sweep", "retire_reduce", "retire_scan", "latency_hist",
+           "inverse_table", "build_inverse_table", "frontier_sweep",
+           "retire_reduce", "retire_scan", "latency_hist",
            "slot_frontier", "ring_apply"]
 
 #: kernel name -> launches since the last :func:`reset_launches`
@@ -43,6 +48,9 @@ LAUNCHES: Dict[str, int] = {"fused_sweep": 0, "deliver_sweep": 0,
                             "retire_scan": 0, "latency_hist": 0,
                             "slot_frontier": 0, "ring_apply": 0}
 
+# fused_sweep's forward mask: a row is whole 4-word groups, the columns
+# of one warp of its plane pass (kPlaneCols in fused_sweep.cu)
+_PLANE_COLS = 128
 # blocks of retire_reduce aimed for when W alone gives too few
 _RETIRE_TARGET_BLOCKS = 2048
 _RETIRE_COLS = 128          # kRetireCols in retire_reduce.cu
@@ -101,13 +109,58 @@ def launch_deliver_sweep(arr, delivered, crashed, is_app, t, napp, nping):
         _stream(arr.device)))
 
 
-def launch_fused_sweep(arr, delivered, crashed, adj, delay, fwd_ok, is_app,
-                       t, napp, nping):
+def build_inverse_table(adj: torch.Tensor):
+    """``(in_ptr, in_slot)`` — the in-edges of every row of the ``(N,
+    K)`` table ``adj`` as CSR by target: the slots ``p * K + k`` with
+    ``adj[p, k] == q`` are ``in_slot[in_ptr[q]:in_ptr[q + 1]]``, in
+    increasing order, int32 on ``adj``'s device.  Targets outside ``[0,
+    N)`` are dropped (``in_slot`` ends with them, past ``in_ptr[N]``);
+    duplicate edges are kept.  Plain tensor operations, no host wait."""
+    n, k = adj.shape
+    if n * k >= 2 ** 31:
+        raise ValueError(f"the inverse table indexes slots in int32: a "
+                         f"({n}, {k}) table has 2^31 slots or more")
+    flat = adj.reshape(-1).to(torch.int64)
+    key = torch.where((flat >= 0) & (flat < n), flat, n)
+    key, slot = torch.sort(key, stable=True)
+    ptr = torch.searchsorted(key, torch.arange(n + 1, device=adj.device))
+    return ptr.to(torch.int32), slot.to(torch.int32)
+
+
+# (weak reference to the adj last seen, its version counter, its table)
+_inverse = [None, -1, None]
+
+
+def inverse_table(adj: torch.Tensor):
+    """:func:`build_inverse_table` of ``adj``, cached for one table: built
+    anew when ``adj`` is another tensor or its version counter has moved
+    — every in-place write bumps it, the engine's ``adj[p, k] = q`` of a
+    link addition (``sim.apply_events``) included."""
+    ref, version, table = _inverse
+    if ref is not None and ref() is adj and version == adj._version:
+        return table
+    table = build_inverse_table(adj)
+    _inverse[:] = [weakref.ref(adj), adj._version, table]
+    return table
+
+
+def forward_mask(n: int, w: int, device) -> torch.Tensor:
+    """Scratch of fused_sweep's mask of the cells delivered at ``t``:
+    ``(N, 4 * ceil(W / 128))`` words (the kernel's uint32, held as
+    int32), one bit a cell."""
+    words = 4 * -(-w // _PLANE_COLS)
+    return torch.empty((n, words), dtype=torch.int32, device=device)
+
+
+def launch_fused_sweep(arr, delivered, crashed, delay, fwd_ok, is_app, t,
+                       napp, nping, bits, in_ptr, in_slot, passes=3):
+    """``passes=1`` runs the plane pass alone (no forward)."""
     n, w = arr.shape
     _raise_on("fused_sweep", _build.load_library().rt_fused_sweep(
         arr.data_ptr(), delivered.data_ptr(), _u8(crashed), _u8(is_app),
-        adj.data_ptr(), delay.data_ptr(), _u8(fwd_ok), napp.data_ptr(),
-        nping.data_ptr(), n, w, adj.shape[1], int(t), _stream(arr.device)))
+        delay.data_ptr(), _u8(fwd_ok), in_ptr.data_ptr(), in_slot.data_ptr(),
+        bits.data_ptr(), napp.data_ptr(), nping.data_ptr(), n, w,
+        delay.shape[1], int(t), int(passes), _stream(arr.device)))
 
 
 def launch_frontier_sweep(arr, delivered, adj, delay, gate, do, fwd_ok,
@@ -225,7 +278,8 @@ def fused_sweep(arr, delivered, crashed, adj, delay, fwd_ok, is_app,
                 t: int):
     """The gating-free round in place: ``(arr, delivered, napp,
     nping)`` — deliveries at ``t``, their per-row counts, and the
-    forward scatter-min over ``fwd_ok`` slots into ``arr``."""
+    forward scatter-min over ``fwd_ok`` slots into ``arr``, which the
+    kernel pulls through :func:`inverse_table` of ``adj``."""
     dev, n, w = _check_planes(arr, delivered, crashed, is_app)
     _check_slots(dev, n, adj=(adj, torch.int32), delay=(delay, torch.int32),
                  fwd_ok=(fwd_ok, torch.bool))
@@ -235,10 +289,11 @@ def fused_sweep(arr, delivered, crashed, adj, delay, fwd_ok, is_app,
         arr.copy_(a2)
         delivered.copy_(d2)
         return arr, delivered, napp, nping
+    in_ptr, in_slot = inverse_table(adj)
     napp = torch.zeros(n, dtype=torch.int32, device=dev)
     nping = torch.zeros(n, dtype=torch.int32, device=dev)
-    launch_fused_sweep(arr, delivered, crashed, adj, delay, fwd_ok, is_app,
-                       t, napp, nping)
+    launch_fused_sweep(arr, delivered, crashed, delay, fwd_ok, is_app, t,
+                       napp, nping, forward_mask(n, w, dev), in_ptr, in_slot)
     LAUNCHES["fused_sweep"] += 1
     return arr, delivered, napp, nping
 
