@@ -70,9 +70,13 @@ non-zero:
  11. the sharded kernels — slot_frontier (gating on and off) and
      ring_apply byte-equal to their plain versions on small random
      inputs (odd and single-column windows, an all-INF plane, duplicate
-     targets, a second shard's offset with half the targets dropped)
-     and on the inputs phases 8 and 10 gave them, timed, with
-     ``scatter_reduce_(..., "amin")`` as ring_apply's library yardstick;
+     targets, a second shard's offset with half the targets dropped),
+     ring_apply also on its word walk's cases (W of 1, 3, 4, 5, 128, 140
+     and 141, offsets 0 and n, duplicate, dropped and all-foreign
+     targets, all-INF vals, a dest already lower, vals off a 16-byte
+     boundary, up to 600,000 rows), and on the inputs phases 8 and 10
+     gave them, timed, with ``scatter_reduce_(..., "amin")`` as
+     ring_apply's library yardstick and its earlier design's time;
  12. sharded parity — the sharded engine on the card and on the CPU at
      one rank: every scenario builder at N = 256 with scan on and off
      and the full delivered matrix, and an N = 1,024 bursty/defer live
@@ -81,13 +85,17 @@ non-zero:
      their plain versions on the card, within float32 2e-5 and bfloat16
      2e-2: small random cases first (odd and padded S and W, S below a
      chunk or block, h0 on and off, H/KV of 1 to 80, kv padded past
-     seq_kv, q longer than kv, D 16-256, both types),
+     seq_kv, q longer than kv, D 16-256, both types; ssd_scan on both of
+     its bodies, with P of 8 to 64 in slices of 32, N of 16 to 200, B of
+     2, H of 1 to 80),
      then (after phases 14-15) the inputs the serving runs gave them and
      flash on q/k/v of a recurrentgemma-9b attention layer at a
      2,048-token prefill (also held against the layer's own attention
      output) and at a yi-6b train_4k-like shape, each timed (bare
      launch, wrapper, plain, scaled_dot_product_attention for flash)
-     and bounded;
+     and bounded; ssd_scan on the mamba2-2.7b prefill's inputs must run
+     its tensor-core body, and stay within the bf16 tolerance of a
+     float64 evaluation;
  14. lm_serve_recurrentgemma — recurrentgemma-9b at full width and
      depth (38 layers: 26 RG-LRU, 12 local attention; f32 weights from
      a seeded generator, bf16 compute) through ServingEngine: 4 slots,
@@ -112,6 +120,14 @@ configurations at one rank in this process and then over 2 and over the
 given number of ranks, which ``repro_torch.api.run`` starts itself
 (NCCL, one card a rank), each byte-identical to the one-rank run.  It
 needs that many cards.
+
+    python3 chip_smoke.py --ab DIR
+
+compares engine walls with another checkout on the same card (DIR, a
+directory inside this checkout, e.g. the parent commit unpacked by
+``git archive`` into build/parent): phase 10's run four times (the first
+warms up) and phase 15 twice, in a process of each checkout in turn,
+DIR, this, this, DIR.
 """
 
 from __future__ import annotations
@@ -152,8 +168,13 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import numpy as np
     if argv:
+        if len(argv) == 2 and argv[0] == "--ab":
+            ab_phase(argv[1])
+            _finish(torch)
+            return 0
         if len(argv) != 2 or argv[0] != "--ranks" or int(argv[1]) < 2:
-            print("usage: chip_smoke.py [--ranks N>=2]", file=sys.stderr)
+            print("usage: chip_smoke.py [--ranks N>=2 | --ab DIR]",
+                  file=sys.stderr)
             return 2
         ranks_phase(torch, np, int(argv[1]))
         _finish(torch)
@@ -219,9 +240,58 @@ def main(argv=None) -> int:
     # -- 13-16. the LM substrate: kernels, serving, card vs CPU -------- #
     entries += lm_phases(torch, np, dev)
 
+    # not measured here: the card ms of the designs that PR 16 replaced,
+    # copied from PERF.md's kernel table, for the eye beside this run's
+    emit("earlier_design_ms", measured_in_this_run=False,
+         source="PERF.md section 6, rows 8 and 10",
+         ring_apply={"sharded_churn": 0.04427199997007847,
+                     "scale_scan_off": 0.5357600152492523},
+         ssd_scan={"lm_serve_mamba2": 2.5712960958480835})
     print(json.dumps({"kernels": entries}), flush=True)
     _finish(torch)
     return 0
+
+
+# one turn of --ab, run by each checkout's own chip_smoke.py
+AB_TURN = r"""
+import sys
+sys.path.insert(0, "src")
+import numpy as np, torch
+import chip_smoke as cs
+torch.backends.cuda.matmul.allow_tf32 = False
+walls = [cs._scale_run(torch, cs.scale_spec("off"))[3] for _ in range(4)]
+cs.emit("scale_scan_off_walls", walls=walls)
+for _ in range(2):
+    cs.lm_serve_phase(torch, np, "mamba2-2.7b")
+"""
+
+
+def ab_phase(other: str) -> None:
+    """--ab: the walls of scale_scan_off and lm_serve_mamba2 in another
+    checkout and in this one, alternating on this card.  The other
+    checkout lies inside this one (e.g. under the gitignored build/),
+    so that nothing is run or built outside it."""
+    root = os.path.realpath(ROOT)
+    path = os.path.realpath(os.path.join(root, other))
+    if os.path.commonpath([path, root]) != root or path == root:
+        raise SystemExit(f"--ab: {other} is not a directory inside {root}")
+    trees = {"other": path, "this": root}
+    for name in ("other", "this", "this", "other"):
+        proc = subprocess.run(
+            [sys.executable, "-c", AB_TURN], cwd=trees[name],
+            capture_output=True, text=True, timeout=900,
+            env=dict(os.environ, PYTHONPATH=os.path.join(trees[name], "src")))
+        if proc.returncode:
+            raise RuntimeError(f"--ab turn in {trees[name]} failed:\n"
+                               + proc.stdout[-2000:] + proc.stderr[-2000:])
+        for line in proc.stdout.splitlines():
+            if not line.startswith("{"):
+                continue
+            rec = json.loads(line)
+            keep = ("walls", "engine_wall_seconds", "tokens_per_sec",
+                    "prefill_ms", "decode_ms_per_tick")
+            emit("ab_" + rec["phase"], tree=name, **{
+                k: v for k, v in rec.items() if k in keep})
 
 
 def _finish(torch) -> None:
@@ -402,13 +472,23 @@ def _max_err(torch, got, want) -> int:
     return err
 
 
-def _time_ms(torch, fn, names, inputs, inplace, reps, make_outs=None):
+# cycles the card spins ahead of a queued timing: about 1 ms at the
+# H100's clock, more than the host takes to queue the call behind it
+SPIN_CYCLES = 2_000_000
+
+
+def _time_ms(torch, fn, names, inputs, inplace, reps, make_outs=None,
+             queued=True):
     """Median CUDA-event time of one call of ``fn``.  The copies of the
     in-place arguments, and the outputs ``make_outs`` allocates for a
-    bare launch, are made outside the timed interval.  The L2 cache is
-    not flushed: the planes the churn-shape kernels get (28 MB each) sit
-    partly in the 50 MB L2 on the path too, as the sweep before them
-    has just touched them."""
+    bare launch, are made outside the timed interval.  ``queued``: the
+    card spins before the start event while the host queues the call,
+    so the interval is the card's time alone, not the host's pace (a
+    kernel of ~20 us is shorter than its launch from Python); without
+    it the interval is a caller's latency, host work included.  The L2
+    cache is not flushed: the planes the churn-shape kernels get (28 MB
+    each) sit partly in the 50 MB L2 on the path too, as the sweep
+    before them has just touched them."""
     pairs = []
     for _ in range(reps):
         args = [inputs[k].clone() if k in inplace else inputs[k]
@@ -417,6 +497,8 @@ def _time_ms(torch, fn, names, inputs, inplace, reps, make_outs=None):
             args += make_outs(inputs)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn(*args)
         end.record()
@@ -750,8 +832,9 @@ def _entry(torch, name, call, inp):
     plain_out = want[0] if name == "slot_frontier" else want
     bound_ms, bound_by = _bound(torch, name, inp, plain_out)
     ms = _time_ms(torch, launch, names, inp, inplace, 20, outs)
-    wrapper_ms = _time_ms(torch, kernel, names, inp, inplace, 20)
-    plain_ms = _time_ms(torch, plain, names, inp, (), 5)
+    wrapper_ms = _time_ms(torch, kernel, names, inp, inplace, 20,
+                          queued=False)
+    plain_ms = _time_ms(torch, plain, names, inp, (), 5, queued=False)
     ms2 = _time_ms(torch, launch, names, inp, inplace, 20, outs)
     plane = inp["dest"] if name == "ring_apply" else inp["delivered"]
     entry = dict(
@@ -1362,6 +1445,85 @@ def check_shard_small(torch, np, dev, calls):
     emit("kernels_shard_small", cases=cases, kernels=sorted(calls),
          variants=["gating off", "offset 0", "all-INF vals",
                    "coinciding targets"], max_abs_err=0)
+    check_ring_small(torch, dev, calls["ring_apply"])
+
+
+# ring_apply's word walk: whole 4-cell words in a row (W % 4 == 0), words
+# across two rows with a scalar head and tail (odd W), one cell a row
+RING_WIDTHS = (1, 3, 4, 5, 128, 140, 141)
+# rows of the cases: a few units with a ragged last one, and grids of
+# many units a warp
+RING_ROWS = (37, 4_099, 600_000)
+
+
+def _ring_case(torch, gen, dev, n, w, off, variant):
+    """ring_apply's inputs for one variant, made on the card from
+    ``gen``: sent values in [2, 40) and INF, dest in [0, 40) and INF."""
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    def half_inf(x):
+        keep = torch.rand(x.shape, generator=gen, device=dev) < 0.5
+        return torch.where(keep, x, torch.full_like(x, INF))
+    vals = half_inf(ints(2, 40, (n, w)))
+    dest = half_inf(ints(0, 40, (n, w)))
+    tgt = ints(0, 2 * n, (n,))          # about half owned at either offset
+    if variant == "duplicate":          # every row on one of 3 targets
+        tgt = off + ints(0, 3, (n,))
+    elif variant == "dropped":          # -1, below off and past off + n
+        tgt = ints(-n, 3 * n, (n,))
+        tgt[::5] = -1
+    elif variant == "all-foreign":
+        tgt = off + n + ints(0, n, (n,))
+    elif variant == "all-INF":
+        vals.fill_(INF)
+    elif variant == "dest-lower":       # every sent value already beaten
+        dest.fill_(1)
+    elif variant == "unaligned":        # vals off a 16-byte boundary
+        vals = torch.cat([vals.new_full((1,), INF), vals.reshape(-1)])[1:]
+        vals = vals.view(n, w)
+    return dict(dest=dest, vals=vals, tgt=tgt, off=off)
+
+
+RING_VARIANTS = ("random", "duplicate", "dropped", "all-foreign", "all-INF",
+                 "dest-lower", "unaligned")
+
+
+def check_ring_small(torch, dev, call):
+    """ring_apply against its plain version, byte for byte, on every
+    width of RING_WIDTHS, at offsets 0 and n, for each of RING_VARIANTS,
+    at 37 and 4,099 rows, and at 600,000 rows for W of 3, 140 and 141."""
+    kernel, plain, names, *_ = call
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20264)
+    cases = 0
+    for w in RING_WIDTHS:
+        for n in RING_ROWS:
+            if n == RING_ROWS[-1] and w not in (3, 140, 141):
+                continue
+            for off in (0, n):
+                for variant in RING_VARIANTS:
+                    case = _ring_case(torch, gen, dev, n, w, off, variant)
+                    # the kernel's dest: a copy, off a 16-byte boundary
+                    # too in the unaligned variant
+                    lead = 2 if variant == "unaligned" else 0
+                    dest = torch.empty(n * w + lead, dtype=torch.int32,
+                                       device=dev)[lead:].view(n, w)
+                    dest.copy_(case["dest"])
+                    got = kernel(dest, case["vals"], case["tgt"], off)
+                    want = plain(*[case[k] for k in names])
+                    err = _max_err(torch, got, want)
+                    if err:
+                        raise AssertionError(
+                            f"ring_apply differs from its plain version on "
+                            f"({n}, {w}), off {off}, {variant}: max |err| "
+                            f"{err}")
+                    cases += 1
+    torch.cuda.synchronize()
+    emit("ring_apply_small", cases=cases, widths=list(RING_WIDTHS),
+         rows=list(RING_ROWS), offsets=["0", "n"],
+         variants=list(RING_VARIANTS), max_abs_err=0)
 
 
 def check_shard_main_path(torch, calls, captured):
@@ -1374,8 +1536,9 @@ def check_shard_main_path(torch, calls, captured):
         entry["at_scale"] = {
             key: v for key, v in _entry(
                 torch, name, call, captured["scale"][name]).items()
-            if key in ("shape", "ms", "wrapper_ms", "plain_ms", "bound_ms",
-                       "bound_by", "library_ms", "max_abs_err", "flushed")}
+            if key in ("shape", "ms", "ms_repeats", "wrapper_ms", "plain_ms",
+                       "bound_ms", "bound_by", "library_ms", "max_abs_err",
+                       "flushed")}
         entries.append(entry)
     torch.cuda.empty_cache()
     return entries
@@ -1614,13 +1777,16 @@ def _lm_close(torch, got, want, tol):
     return err, ok
 
 
-def _time_fn(torch, fn, reps) -> float:
-    """Median CUDA-event time of ``fn()``, after one warm-up call."""
+def _time_fn(torch, fn, reps, queued=True) -> float:
+    """Median CUDA-event time of ``fn()``, after one warm-up call;
+    ``queued`` as for ``_time_ms``."""
     fn()
     pairs = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -1709,7 +1875,21 @@ LM_SMALL = {
                  dict(b=1, s=5, h=2, p=16, n=16, chunk=16),     # q = S
                  dict(b=1, s=64, h=1, p=8, n=16, chunk=16),
                  # the full-width tile: f32 splits (Q, Q) into row tiles
-                 dict(b=1, s=300, h=4, p=64, n=128, chunk=128)],
+                 dict(b=1, s=300, h=4, p=64, n=128, chunk=128),
+                 # the tensor-core body's edges: P slices of 32 with a
+                 # ragged last one (P = 48), H and B not multiples of
+                 # anything, q = S < chunk with P = 8, a last chunk of
+                 # one step, P and N not multiples of 8 (element copies),
+                 # the main path's heads at a short S; and bf16 shapes
+                 # the FMA body takes (N > 128, chunk > 128)
+                 dict(b=2, s=200, h=3, p=48, n=128, chunk=128),
+                 dict(b=1, s=40, h=5, p=8, n=16, chunk=64),
+                 dict(b=2, s=64, h=7, p=16, n=32, chunk=32),
+                 dict(b=1, s=129, h=2, p=64, n=128, chunk=128),
+                 dict(b=1, s=100, h=3, p=12, n=24, chunk=128),
+                 dict(b=1, s=200, h=80, p=64, n=128, chunk=128),
+                 dict(b=1, s=50, h=2, p=64, n=200, chunk=64),
+                 dict(b=1, s=300, h=2, p=32, n=64, chunk=256)],
     "flash_attention": [
         dict(b=1, h=4, kv=4, sq=128, skv=128, d=64, causal=True),
         dict(b=2, h=4, kv=2, sq=200, skv=200, d=64, causal=True),
@@ -1744,11 +1924,16 @@ def check_lm_small(torch, np, dev):
     rng = np.random.default_rng(20270)
     errs = {}
     cases = 0
+    bodies = {}
     for name, shapes in LM_SMALL.items():
         kernel, plain, _ = calls[name]
         for shape in shapes:
             for dtype in ("float32", "bfloat16"):
                 inp = _lm_random(torch, np, rng, name, dev, dtype, **shape)
+                if name == "ssd_scan":
+                    body = _ssd_body(inp)
+                    bodies[f"{body} {dtype}"] = bodies.get(
+                        f"{body} {dtype}", 0) + 1
                 before = LAUNCHES[name]
                 got = kernel(inp)
                 assert LAUNCHES[name] == before + 1, name
@@ -1760,8 +1945,19 @@ def check_lm_small(torch, np, dev):
                 errs[name] = max(errs.get(name, 0.0), err)
                 cases += 1
     torch.cuda.synchronize()
+    assert bodies.get("mma bfloat16") and bodies.get("fma bfloat16") and \
+        not bodies.get("mma float32"), bodies
     emit("lm_kernels_small", cases=cases, kernels=sorted(calls),
-         max_abs_err=errs, tolerance=LM_TOL)
+         max_abs_err=errs, tolerance=LM_TOL, ssd_scan_bodies=bodies)
+
+
+def _ssd_body(inp) -> str:
+    """The body ssd_scan runs on these inputs: "mma" or "fma"."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_body
+    from repro_torch.kernels.ssd_scan.ref import chunk_len
+    s = inp["xbar"].shape[1]
+    return ssd_scan_body(chunk_len(s, inp["chunk"]), inp["Bm"].shape[-1],
+                         inp["xbar"].dtype)
 
 
 def _lm_entry(torch, np, name, inp, note=None):
@@ -1779,8 +1975,8 @@ def _lm_entry(torch, np, name, inp, note=None):
     bound_ms, bound_by, flops, nbytes = _lm_bound(np, name, inp)
     launch = bare(inp)
     ms = _time_fn(torch, launch, 20)
-    wrapper_ms = _time_fn(torch, lambda: kernel(inp), 20)
-    plain_ms = _time_fn(torch, lambda: plain(inp), 5)
+    wrapper_ms = _time_fn(torch, lambda: kernel(inp), 20, queued=False)
+    plain_ms = _time_fn(torch, lambda: plain(inp), 5, queued=False)
     ms2 = _time_fn(torch, launch, 20)
     first = inp[{"rglru_scan": "a", "ssd_scan": "xbar",
                  "flash_attention": "q"}[name]]
@@ -1797,6 +1993,7 @@ def _lm_entry(torch, np, name, inp, note=None):
     if name == "ssd_scan":
         entry["n"] = int(inp["Bm"].shape[-1])
         entry["chunk"] = int(inp["chunk"])
+        entry["body"] = _ssd_body(inp)
         entry.update(_ssd_f64(torch, inp, got, want))
     if note:
         entry["note"] = note
@@ -1805,17 +2002,21 @@ def _lm_entry(torch, np, name, inp, note=None):
 
 def _ssd_f64(torch, inp, got, want):
     """The kernel's and the plain version's largest differences from the
-    plain version evaluated in float64 on the same inputs; the kernel's
-    must be within the tolerance of its type."""
+    plain version evaluated in float64 on the same inputs, absolute and
+    as a fraction of the tolerance (|diff| / (tol + tol |f64|), 1 at its
+    edge); the kernel's must be within the tolerance of its type."""
     from repro_torch.kernels.ssd_scan.ref import ssd_chunk_scan_ref
     truth = ssd_chunk_scan_ref(*(inp[k].double() for k in (
         "xbar", "a_log", "Bm", "Cm")), chunk=inp["chunk"])
     tol = LM_TOL[_lm_dtype("ssd_scan", inp)]
     out = {}
     for who, res in (("kernel", got), ("plain", want)):
-        err, ok = _lm_close(torch, tuple(r.double() for r in res), truth,
-                            tol)
+        res = tuple(r.double() for r in res)
+        err, ok = _lm_close(torch, res, truth, tol)
         out[f"{who}_f64_max_abs_err"] = err
+        out[f"{who}_f64_tol_frac"] = max(
+            float(((r - w).abs() / (tol + tol * w.abs())).max())
+            for r, w in zip(res, truth))
         if who == "kernel" and not ok:
             raise AssertionError(f"ssd_scan is further than {tol} from "
                                  f"a float64 evaluation: {err}")
@@ -2030,6 +2231,8 @@ def lm_kernels_phase(torch, np, captured):
     entries = [_lm_entry(torch, np, "rglru_scan", rg)]
     emit("kernel", **entries[-1])
     entries.append(_lm_entry(torch, np, "ssd_scan", captured["ssd_scan"]))
+    # the main path's shape runs the tensor-core body
+    assert entries[-1]["body"] == "mma", entries[-1]["body"]
     emit("kernel", **entries[-1])
     attn = captured["attention"]
     layer_out = attn.pop("layer_out")

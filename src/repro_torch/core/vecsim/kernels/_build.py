@@ -40,8 +40,9 @@ LIB_NAME = "librepro_torch_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C entry point -> argument types; every entry point returns the
-# cudaError_t of cudaGetLastError() after its launch.
+# C entry point -> argument types; every entry point that launches
+# returns the cudaError_t of cudaGetLastError() after its launch
+# (rt_ssd_scan_body launches nothing: it names the body a shape runs).
 _SIGNATURES = {
     "rt_fused_sweep": [_P] * 11 + [_I] * 5 + [_P],
     "rt_deliver_sweep": [_P] * 6 + [_I] * 3 + [_P],
@@ -53,6 +54,7 @@ _SIGNATURES = {
     # the LM kernels (repro_torch/kernels/csrc)
     "rt_rglru_scan": [_P] * 4 + [_I] * 4 + [_P],
     "rt_ssd_scan": [_P] * 6 + [_I] * 7 + [_P],
+    "rt_ssd_scan_body": [_I] * 3,
     "rt_flash_attention": [_P] * 4 + [_I] * 9 + [_F, _P],
 }
 

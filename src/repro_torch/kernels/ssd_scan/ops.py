@@ -4,8 +4,10 @@ inputs and outputs, chunk padding included.
 
 The kernel reads the op's own layouts — xbar (B, S, H, P), a_log (B, S,
 H), Bm and Cm (B, S, N) — so no transposed copy is made: a block finds
-its head's rows by stride, and B and C by batch row (shared by the
-heads, n_groups = 1)."""
+its head's rows (and its slice of P) by stride, and B and C by batch
+row (shared by the heads, n_groups = 1).  bf16 chunks of at most 128
+steps and states of at most 128 rows run on the tensor cores, the rest
+on the CUDA cores (:func:`ssd_scan_body`)."""
 
 from __future__ import annotations
 
@@ -15,7 +17,19 @@ import torch.nn.functional as F
 from .. import common
 from .ref import chunk_len, ssd_chunk_scan_ref
 
-__all__ = ["ssd_chunk_scan", "launch_ssd_scan"]
+__all__ = ["ssd_chunk_scan", "launch_ssd_scan", "ssd_scan_body"]
+
+# rt_ssd_scan_body's codes (csrc/ssd_scan.cu)
+_BODIES = {0: "fma", 1: "mma"}
+
+
+def ssd_scan_body(q: int, n: int, dtype: torch.dtype) -> str:
+    """The body the kernel runs for chunks of ``q`` steps, N = ``n`` and
+    inputs of ``dtype``: ``"mma"`` (tensor cores, bf16 with q and n at
+    most 128) or ``"fma"`` (CUDA cores).  Asks the built library, so it
+    needs the CUDA toolchain."""
+    return _BODIES[common.library().rt_ssd_scan_body(
+        q, n, common.DTYPE_CODE[dtype])]
 
 
 def launch_ssd_scan(xbar, a_log, Bm, Cm, y, hout, q: int):
