@@ -76,7 +76,12 @@ non-zero:
      targets, all-INF vals, a dest already lower, vals off a 16-byte
      boundary, up to 600,000 rows), and on the inputs phases 8 and 10
      gave them, timed, with ``scatter_reduce_(..., "amin")`` as
-     ring_apply's library yardstick and its earlier design's time;
+     ring_apply's library yardstick; then deliver_sweep byte-equal on
+     its row walk's cases (W of 1, 3, 4, 5, 127, 128, 140, 141 and 513,
+     crashed rows, all-delivered and all-undelivered planes, arr == t
+     on delivered cells, planes off a 16-byte boundary, up to 600,000
+     rows) and on phase 10's round-40 inputs (N = 2^20, W = 128), timed
+     and bounded in its kernels-line entry;
  12. sharded parity — the sharded engine on the card and on the CPU at
      one rank: every scenario builder at N = 256 with scan on and off
      and the full delivered matrix, and an N = 1,024 bursty/defer live
@@ -84,7 +89,9 @@ non-zero:
  13. lm_kernels — rglru_scan, ssd_scan and flash_attention against
      their plain versions on the card, within float32 2e-5 and bfloat16
      2e-2: small random cases first (odd and padded S and W, S below a
-     chunk or block, h0 on and off, H/KV of 1 to 80, kv padded past
+     chunk or block, h0 on and off; rglru_scan at S of 1, 15, 16, 17
+     and 8,192, W one past a 512-column block, a within 1e-4 of 1;
+     H/KV of 1 to 80, kv padded past
      seq_kv, q longer than kv, D 16-256, both types; ssd_scan on both of
      its bodies, with P of 8 to 64 in slices of 32, N of 16 to 200, B of
      2, H of 1 to 80),
@@ -126,8 +133,10 @@ needs that many cards.
 compares engine walls with another checkout on the same card (DIR, a
 directory inside this checkout, e.g. the parent commit unpacked by
 ``git archive`` into build/parent): phase 10's run four times (the first
-warms up) and phase 15 twice, in a process of each checkout in turn,
-DIR, this, this, DIR.
+warms up), phase 4's four times, phase 15 twice and phase 14 twice, with
+deliver_sweep timed on phase 10's round-40 inputs and rglru_scan on
+phase 14's first prefill, in a process of each checkout in turn, DIR,
+this, this, DIR.
 """
 
 from __future__ import annotations
@@ -229,9 +238,16 @@ def main(argv=None) -> int:
     scale_off = scale_scan_off_phase(torch, np, scale, captured)
     for name in ("slot_frontier", "ring_apply"):
         launches[name] = churn[name] + scale_off[name]
+    # deliver_sweep runs a round on the gated, sharded_churn and
+    # scale_scan_off paths
+    launches["deliver_sweep"] += churn["deliver_sweep"] + \
+        scale_off["deliver_sweep"]
     # -- 11. the sharded kernels against their plain versions ---------- #
     check_shard_small(torch, np, dev, shard_calls)
     entries += check_shard_main_path(torch, shard_calls, captured)
+    check_deliver_small(torch, dev)
+    deliver = next(e for e in entries if e["name"] == "deliver_sweep")
+    deliver["at_scale"] = _deliver_at_scale(torch, captured)
     captured.clear()
     # -- 12. sharded parity, card vs CPU ------------------------------ #
     sharded_parity_phase(np)
@@ -240,37 +256,59 @@ def main(argv=None) -> int:
     # -- 13-16. the LM substrate: kernels, serving, card vs CPU -------- #
     entries += lm_phases(torch, np, dev)
 
-    # not measured here: the card ms of the designs that PR 16 replaced,
-    # copied from PERF.md's kernel table, for the eye beside this run's
+    # not measured here: the card ms of the earlier designs of four
+    # kernels, copied from PERF.md's kernel table, for the eye beside
+    # this run's
     emit("earlier_design_ms", measured_in_this_run=False,
-         source="PERF.md section 6, rows 8 and 10",
+         source="PERF.md section 6, rows 2, 8, 10 and 11",
          ring_apply={"sharded_churn": 0.04427199997007847,
                      "scale_scan_off": 0.5357600152492523},
-         ssd_scan={"lm_serve_mamba2": 2.5712960958480835})
+         ssd_scan={"lm_serve_mamba2": 2.5712960958480835},
+         deliver_sweep={"gated": 0.05241600051522255,
+                        "scale_scan_off": 0.7481440007686615},
+         rglru_scan={"lm_serve_recurrentgemma": 0.22115200012922287})
     print(json.dumps({"kernels": entries}), flush=True)
     _finish(torch)
     return 0
 
 
-# one turn of --ab, run by each checkout's own chip_smoke.py
+# one turn of --ab, run by each checkout's own chip_smoke.py: phase 10's
+# run four times (deliver_sweep's inputs of round 40 kept in the first and
+# timed after), phase 4 four times, phase 15 twice, and phase 14 twice
+# (rglru_scan's inputs of the first prefill timed after each)
 AB_TURN = r"""
 import sys
 sys.path.insert(0, "src")
 import numpy as np, torch
 import chip_smoke as cs
 torch.backends.cuda.matmul.allow_tf32 = False
-walls = [cs._scale_run(torch, cs.scale_spec("off"))[3] for _ in range(4)]
+call = cs._ops()["deliver_sweep"]
+store, undo = cs._capture(torch, {"deliver_sweep": call}, {"deliver_sweep": 41})
+try:
+    walls = [cs._scale_run(torch, cs.scale_spec("off"))[3]]
+finally:
+    undo()
+walls += [cs._scale_run(torch, cs.scale_spec("off"))[3] for _ in range(3)]
 cs.emit("scale_scan_off_walls", walls=walls)
+cs._entry(torch, "deliver_sweep", call, store.pop("deliver_sweep"))
+for _ in range(4):
+    cs.gated_phase(torch)
 for _ in range(2):
     cs.lm_serve_phase(torch, np, "mamba2-2.7b")
+for _ in range(2):
+    _, rg, _ = cs.lm_serve_phase(torch, np, "recurrentgemma-9b")
+    cs.emit("kernel", **cs._lm_entry(torch, np, "rglru_scan", rg))
+    del rg
 """
 
 
 def ab_phase(other: str) -> None:
-    """--ab: the walls of scale_scan_off and lm_serve_mamba2 in another
-    checkout and in this one, alternating on this card.  The other
-    checkout lies inside this one (e.g. under the gitignored build/),
-    so that nothing is run or built outside it."""
+    """--ab: the walls of scale_scan_off, gated, lm_serve_mamba2 and
+    lm_serve_recurrentgemma, and the card ms of deliver_sweep and
+    rglru_scan on their main-path inputs, in another checkout and in
+    this one, alternating on this card.  The other checkout lies inside
+    this one (e.g. under the gitignored build/), so that nothing is run
+    or built outside it."""
     root = os.path.realpath(ROOT)
     path = os.path.realpath(os.path.join(root, other))
     if os.path.commonpath([path, root]) != root or path == root:
@@ -289,7 +327,8 @@ def ab_phase(other: str) -> None:
                 continue
             rec = json.loads(line)
             keep = ("walls", "engine_wall_seconds", "tokens_per_sec",
-                    "prefill_ms", "decode_ms_per_tick")
+                    "prefill_ms", "decode_ms_per_tick", "name", "shape",
+                    "ms", "bound_ms", "max_abs_err")
             emit("ab_" + rec["phase"], tree=name, **{
                 k: v for k, v in rec.items() if k in keep})
 
@@ -1313,7 +1352,8 @@ def sharded_churn_phase(torch, np, captured):
          launches={name: launches[name] for name in (
              "slot_frontier", "ring_apply", "deliver_sweep",
              "retire_reduce", "latency_hist")})
-    return {name: launches[name] for name in ("slot_frontier", "ring_apply")}
+    return {name: launches[name] for name in ("slot_frontier", "ring_apply",
+                                              "deliver_sweep")}
 
 
 def _scale_run(torch, spec):
@@ -1390,10 +1430,12 @@ def scale_phase(torch):
 
 def scale_scan_off_phase(torch, np, scale, captured):
     """Phase 10: keeps the inputs of slot 1's slot_frontier and
-    ring_apply calls of round 40 in ``captured``."""
+    ring_apply calls of round 40, and of round 40's deliver_sweep call,
+    in ``captured``."""
     call = 4 * 40 + 2
-    store, undo = _capture(torch, _shard_ops(),
-                           {"slot_frontier": call, "ring_apply": call})
+    store, undo = _capture(
+        torch, {**_shard_ops(), "deliver_sweep": _ops()["deliver_sweep"]},
+        {"slot_frontier": call, "ring_apply": call, "deliver_sweep": 40 + 1})
     try:
         rep, launches, build_s, wall = _scale_run(torch, scale_spec("off"))
     finally:
@@ -1413,7 +1455,8 @@ def scale_scan_off_phase(torch, np, scale, captured):
     assert (res.peak_live, res.lat_sum, res.lat_cnt) == \
         (ref.peak_live, ref.lat_sum, ref.lat_cnt)
     _scale_emit(torch, "scale_scan_off", rep, launches, build_s, wall)
-    return {name: launches[name] for name in ("slot_frontier", "ring_apply")}
+    return {name: launches[name] for name in ("slot_frontier", "ring_apply",
+                                              "deliver_sweep")}
 
 
 def check_shard_small(torch, np, dev, calls):
@@ -1532,16 +1575,113 @@ def check_shard_main_path(torch, calls, captured):
     shape is the kernels line's entry, the scale shape rides in it."""
     entries = []
     for name, call in calls.items():
-        entry = _entry(torch, name, call, captured["churn"][name])
+        entry = _entry(torch, name, call, captured["churn"].pop(name))
         entry["at_scale"] = {
             key: v for key, v in _entry(
-                torch, name, call, captured["scale"][name]).items()
-            if key in ("shape", "ms", "ms_repeats", "wrapper_ms", "plain_ms",
-                       "bound_ms", "bound_by", "library_ms", "max_abs_err",
-                       "flushed")}
+                torch, name, call, captured["scale"].pop(name)).items()
+            if key in _AT_SCALE_KEYS}
         entries.append(entry)
     torch.cuda.empty_cache()
     return entries
+
+
+_AT_SCALE_KEYS = ("shape", "ms", "ms_repeats", "wrapper_ms", "plain_ms",
+                  "bound_ms", "bound_by", "library_ms", "max_abs_err",
+                  "flushed", "round")
+
+
+def _deliver_at_scale(torch, captured):
+    """deliver_sweep on the inputs of round 40 of phase 10 (N = 2^20, W =
+    128): held, timed and bounded; rides in its churn-shape entry."""
+    inp = captured["scale"].pop("deliver_sweep")
+    entry = _entry(torch, "deliver_sweep", _ops()["deliver_sweep"], inp)
+    entry["round"] = int(inp["t"])
+    torch.cuda.empty_cache()
+    return {key: v for key, v in entry.items() if key in _AT_SCALE_KEYS}
+
+
+# deliver_sweep's row walk: whole 4-cell words in a row (W % 4 == 0), words
+# across rows with a scalar head and tail (odd W), one cell a row, a row
+# of two pieces (W > 512)
+DELIVER_WIDTHS = (1, 3, 4, 5, 127, 128, 140, 141, 513)
+DELIVER_ROWS = (37, 4_099)
+DELIVER_VARIANTS = ("random", "crashed", "all-delivered", "all-undelivered",
+                    "arr-t-on-delivered", "shifted", "unaligned")
+
+
+def _deliver_case(torch, gen, dev, n, w, variant):
+    """deliver_sweep's inputs for one variant, made on the card from
+    ``gen``: arrivals at t on 30% of the cells, 40% delivered earlier and
+    10% at t, 10% of the rows crashed (half in the crashed variant)."""
+    def rand(shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+    t = 20
+    arr = torch.where(rand((n, w)) < 0.5, ints(0, 25, (n, w)),
+                      torch.full((n, w), INF, dtype=torch.int32, device=dev))
+    arr[rand((n, w)) < 0.3] = t
+    delivered = torch.where(rand((n, w)) < 0.4, ints(0, 20, (n, w)),
+                            torch.full_like(arr, -1))
+    delivered[rand((n, w)) < 0.1] = t
+    crashed = rand(n) < (0.5 if variant == "crashed" else 0.1)
+    is_app = rand(w) < 0.7
+    if variant == "all-delivered":
+        delivered = ints(0, 20, (n, w))
+    elif variant == "all-undelivered":
+        delivered.fill_(-1)
+    elif variant == "arr-t-on-delivered":
+        arr[delivered >= 0] = t
+    return dict(arr=arr, delivered=delivered, crashed=crashed, is_app=is_app,
+                t=t)
+
+
+def _offset(x, lead):
+    """A copy of ``x`` that starts ``lead`` elements past a 16-byte
+    boundary."""
+    buf = x.new_empty(x.numel() + lead)
+    return buf[lead:].view(x.shape).copy_(x)
+
+
+def check_deliver_small(torch, dev):
+    """deliver_sweep against its plain version, byte for byte, on every
+    width of DELIVER_WIDTHS at 37 and 4,099 rows, for each of
+    DELIVER_VARIANTS ("shifted": delivered and arr two cells past a
+    16-byte boundary, "unaligned": delivered, arr and is_app off their
+    boundaries by different amounts, so the general walk runs, with arr
+    read cell by cell in the second), and at 600,000 rows for W of 3,
+    128 and 140."""
+    kernel, plain, names, inplace = _ops()["deliver_sweep"][:4]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20265)
+    cases = 0
+    shapes = [(n, w) for w in DELIVER_WIDTHS for n in DELIVER_ROWS]
+    shapes += [(600_000, w) for w in (3, 128, 140)]
+    for n, w in shapes:
+        for variant in DELIVER_VARIANTS:
+            case = _deliver_case(torch, gen, dev, n, w, variant)
+            want = plain(*[case[k] for k in names])
+            if variant in ("shifted", "unaligned"):
+                lead = (2, 2, 0) if variant == "shifted" else (3, 1, 1)
+                case = dict(case, delivered=_offset(case["delivered"],
+                                                    lead[0]),
+                            arr=_offset(case["arr"], lead[1]),
+                            is_app=_offset(case["is_app"], lead[2]))
+                got = kernel(*[case[k] for k in names])
+            else:
+                got = _call(torch, kernel, names, case, inplace)
+            err = _max_err(torch, got, want)
+            if err:
+                raise AssertionError(
+                    f"deliver_sweep differs from its plain version on "
+                    f"({n}, {w}), {variant}: max |err| {err}")
+            cases += 1
+    torch.cuda.synchronize()
+    emit("deliver_sweep_small", cases=cases, widths=list(DELIVER_WIDTHS),
+         rows=list(DELIVER_ROWS) + [600_000],
+         variants=list(DELIVER_VARIANTS), max_abs_err=0)
 
 
 def _port_builders():
@@ -1844,8 +1984,14 @@ def _lm_random(torch, np, rng, name, dev, dtype, **shape):
             dev, dtype)
     if name == "rglru_scan":
         b, s, w = shape["b"], shape["s"], shape["w"]
-        return dict(a=t(1 / (1 + np.exp(-rng.standard_normal((b, s, w))))),
-                    bx=t(rng.standard_normal((b, s, w)) * 0.2),
+        if shape.get("near_one"):
+            # repro.models.rglru._gates scales the input by sqrt(1 - a^2)
+            a = 1 - 1e-4 * rng.random((b, s, w))
+            x = rng.standard_normal((b, s, w)) * np.sqrt(1 - a * a)
+        else:
+            a = 1 / (1 + np.exp(-rng.standard_normal((b, s, w))))
+            x = rng.standard_normal((b, s, w)) * 0.2
+        return dict(a=t(a), bx=t(x),
                     h0=(t(rng.standard_normal((b, w)) * 0.1, torch.float32)
                         if shape["h0"] else None))
     if name == "ssd_scan":
@@ -1869,7 +2015,18 @@ LM_SMALL = {
                    dict(b=1, s=300, w=96, h0=False),
                    dict(b=3, s=64, w=64, h0=True),
                    dict(b=2, s=256, w=4096, h0=False),
-                   dict(b=1, s=1, w=7, h0=True)],
+                   dict(b=1, s=1, w=7, h0=True),
+                   # the chunked scan's edges (chunks of 16 rows, blocks
+                   # of 512 columns): S below, at and one past a chunk,
+                   # W not a multiple of 4, one past a block, B of 3, a
+                   # chain of 512 chunks, and a within 1e-4 of 1 with x
+                   # scaled as the model scales it (a long memory)
+                   dict(b=1, s=15, w=12, h0=True),
+                   dict(b=1, s=16, w=8, h0=False),
+                   dict(b=2, s=17, w=5, h0=True),
+                   dict(b=3, s=200, w=513, h0=False),
+                   dict(b=1, s=8192, w=4, h0=True),
+                   dict(b=1, s=8192, w=64, h0=True, near_one=True)],
     "ssd_scan": [dict(b=2, s=96, h=3, p=16, n=32, chunk=32),
                  dict(b=2, s=100, h=2, p=16, n=32, chunk=32),   # padded
                  dict(b=1, s=5, h=2, p=16, n=16, chunk=16),     # q = S

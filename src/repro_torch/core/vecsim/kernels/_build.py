@@ -42,7 +42,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry point -> argument types; every entry point that launches
 # returns the cudaError_t of cudaGetLastError() after its launch
-# (rt_ssd_scan_body launches nothing: it names the body a shape runs).
+# (rt_ssd_scan_body launches nothing: it names the body a shape runs;
+# rt_rglru_scan_scratch and rt_rglru_scan_epochs size the scan's scratch).
 _SIGNATURES = {
     "rt_fused_sweep": [_P] * 11 + [_I] * 5 + [_P],
     "rt_deliver_sweep": [_P] * 6 + [_I] * 3 + [_P],
@@ -52,7 +53,9 @@ _SIGNATURES = {
     "rt_slot_frontier": [_P] * 8 + [_I] * 4 + [_P],
     "rt_ring_apply": [_P] * 3 + [_I] * 3 + [_P],
     # the LM kernels (repro_torch/kernels/csrc)
-    "rt_rglru_scan": [_P] * 4 + [_I] * 4 + [_P],
+    "rt_rglru_scan": [_P] * 5 + [_I] * 5 + [_P],
+    "rt_rglru_scan_scratch": [_I] * 3,
+    "rt_rglru_scan_epochs": [],
     "rt_ssd_scan": [_P] * 6 + [_I] * 7 + [_P],
     "rt_ssd_scan_body": [_I] * 3,
     "rt_flash_attention": [_P] * 4 + [_I] * 9 + [_F, _P],

@@ -1,5 +1,6 @@
-// Shared layout of the per-round delivery sweeps (deliver_sweep.cu,
-// frontier_sweep.cu; fused_sweep.cu has its own two passes).
+// Shared layout of the per-round delivery sweeps (frontier_sweep.cu;
+// deliver_sweep.cu and fused_sweep.cu have their own walks and take only
+// the constants).
 //
 // The (N, W) planes are row-major int32: row p is a process, column m a
 // live message column.  One thread owns one (p, m) cell.  A block is

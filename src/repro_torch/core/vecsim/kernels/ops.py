@@ -267,8 +267,9 @@ def deliver_sweep(arr, delivered, crashed, is_app, t: int):
                                                  is_app, t)
         delivered.copy_(d2)
         return delivered, napp, nping
-    napp = torch.zeros(n, dtype=torch.int32, device=dev)
-    nping = torch.zeros(n, dtype=torch.int32, device=dev)
+    # the kernel stores every row's counts: no fill
+    napp = torch.empty(n, dtype=torch.int32, device=dev)
+    nping = torch.empty(n, dtype=torch.int32, device=dev)
     launch_deliver_sweep(arr, delivered, crashed, is_app, t, napp, nping)
     LAUNCHES["deliver_sweep"] += 1
     return delivered, napp, nping

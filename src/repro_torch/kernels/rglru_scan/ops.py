@@ -1,11 +1,14 @@
 """Wrapper of the RG-LRU scan kernel (``csrc/rglru_scan.cu``), with the
 contract of the JAX package's ``rglru_scan`` op: float32 output, ``(h,
-h[:, -1])``.  The kernel needs no padding: its grid covers W with a
-bounds check and each thread walks exactly S steps."""
+h[:, -1])``.  The kernel needs no padding: it masks the ragged chunk
+and column tile itself.  Its chunked scan passes carries between blocks
+through a scratch of flags, aggregates and prefixes, which this module
+allocates and zeroes once per device and stream and reuses: each launch
+carries a new epoch in its flags, so no launch needs a fill."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -14,15 +17,40 @@ from .ref import rglru_scan_ref
 
 __all__ = ["rglru_scan", "launch_rglru_scan"]
 
+# (device index, stream) -> [int32 scratch, epoch of its last launch]
+_SCRATCH: Dict[Tuple[int, int], list] = {}
+
+
+def _scratch(lib, device: torch.device, stream: int, b: int, s: int,
+             w: int):
+    """The scratch of a launch on ``stream`` at this shape and the epoch
+    the launch carries: a zeroed buffer, allocated anew when it is too
+    small or its epochs have run out."""
+    words = lib.rt_rglru_scan_scratch(b, s, w)
+    if words < 0:
+        raise ValueError(f"rglru_scan: ({b}, {s}, {w}) needs a scratch of "
+                         f"2^31 words or more")
+    key = (device.index, stream)
+    entry = _SCRATCH.get(key)
+    if (entry is None or entry[0].numel() < words
+            or entry[1] + 1 >= lib.rt_rglru_scan_epochs()):
+        entry = [torch.zeros(words, dtype=torch.int32, device=device), 0]
+        _SCRATCH[key] = entry
+    entry[1] += 1
+    return entry[0], entry[1]
+
 
 def launch_rglru_scan(a, bx, h0, h):
     """The bare launch: unchecked, uncounted, into ``h`` (B, S, W) f32;
     ``h0`` is a float32 (B, W) tensor or None."""
     b, s, w = a.shape
-    common.raise_on("rglru_scan", common.library().rt_rglru_scan(
+    lib = common.library()
+    stream = common.stream(a.device)
+    scratch, epoch = _scratch(lib, a.device, stream, b, s, w)
+    common.raise_on("rglru_scan", lib.rt_rglru_scan(
         a.data_ptr(), bx.data_ptr(), None if h0 is None else h0.data_ptr(),
-        h.data_ptr(), b, s, w, common.DTYPE_CODE[a.dtype],
-        common.stream(a.device)))
+        h.data_ptr(), scratch.data_ptr(), b, s, w,
+        common.DTYPE_CODE[a.dtype], epoch, stream))
 
 
 def rglru_scan(a: torch.Tensor, bx: torch.Tensor,
