@@ -22,6 +22,9 @@ non-zero:
      version, and the bound; fused_sweep at the sustained and at the
      serving shape, each also with the time of its plane pass alone
      (pass 1: deliver, counts and forward mask, no forward);
+     frontier_sweep at three rounds of the churn run: 58 (busy, just
+     after the last link addition), 30 (idle) and 63 (the most flushed
+     sends);
   3. sustained — the sustained-traffic configuration (N=10,000, k-regular
      K=8, Poisson 1,000 broadcasts a round, 1,000,000 broadcasts, window
      16,384, seg_len 8) through ``repro_torch.api.run``: full delivery,
@@ -81,7 +84,13 @@ non-zero:
      crashed rows, all-delivered and all-undelivered planes, arr == t
      on delivered cells, planes off a 16-byte boundary, up to 600,000
      rows) and on phase 10's round-40 inputs (N = 2^20, W = 128), timed
-     and bounded in its kernels-line entry;
+     and bounded in its kernels-line entry; and frontier_sweep
+     byte-equal on its walk's cases (the same widths, K of 1, 3, 17, 32,
+     33 and 40, gates equal to d, above t and at -1, cells at t on app
+     and ping columns, slots both flushing and forward-eligible, targets
+     -1, out of range, duplicated and the sender's own row, all-INF and
+     already-lower arr, all rows flushing and none, delivered off a
+     16-byte boundary, up to 600,000 rows);
  12. sharded parity — the sharded engine on the card and on the CPU at
      one rank: every scenario builder at N = 256 with scan on and off
      and the full delivered matrix, and an N = 1,024 bursty/defer live
@@ -134,9 +143,9 @@ compares engine walls with another checkout on the same card (DIR, a
 directory inside this checkout, e.g. the parent commit unpacked by
 ``git archive`` into build/parent): phase 10's run four times (the first
 warms up), phase 4's four times, phase 15 twice and phase 14 twice, with
-deliver_sweep timed on phase 10's round-40 inputs and rglru_scan on
-phase 14's first prefill, in a process of each checkout in turn, DIR,
-this, this, DIR.
+deliver_sweep timed on phase 10's round-40 inputs, frontier_sweep on
+phase 4's rounds 58, 30 and 63 and rglru_scan on phase 14's first
+prefill, in a process of each checkout in turn, DIR, this, this, DIR.
 """
 
 from __future__ import annotations
@@ -246,6 +255,7 @@ def main(argv=None) -> int:
     check_shard_small(torch, np, dev, shard_calls)
     entries += check_shard_main_path(torch, shard_calls, captured)
     check_deliver_small(torch, dev)
+    check_frontier_small(torch, dev)
     deliver = next(e for e in entries if e["name"] == "deliver_sweep")
     deliver["at_scale"] = _deliver_at_scale(torch, captured)
     captured.clear()
@@ -256,11 +266,14 @@ def main(argv=None) -> int:
     # -- 13-16. the LM substrate: kernels, serving, card vs CPU -------- #
     entries += lm_phases(torch, np, dev)
 
-    # not measured here: the card ms of the earlier designs of four
+    # not measured here: the card ms of the earlier designs of five
     # kernels, copied from PERF.md's kernel table, for the eye beside
     # this run's
     emit("earlier_design_ms", measured_in_this_run=False,
-         source="PERF.md section 6, rows 2, 8, 10 and 11",
+         source="PERF.md section 6, rows 2, 3, 8, 10 and 11",
+         frontier_sweep={"gated_round_58": 0.13204800337553024,
+                         "gated_round_30": 0.05544000118970871,
+                         "gated_round_63": 0.1526079997420311},
          ring_apply={"sharded_churn": 0.04427199997007847,
                      "scale_scan_off": 0.5357600152492523},
          ssd_scan={"lm_serve_mamba2": 2.5712960958480835},
@@ -274,8 +287,10 @@ def main(argv=None) -> int:
 
 # one turn of --ab, run by each checkout's own chip_smoke.py: phase 10's
 # run four times (deliver_sweep's inputs of round 40 kept in the first and
-# timed after), phase 4 four times, phase 15 twice, and phase 14 twice
-# (rglru_scan's inputs of the first prefill timed after each)
+# timed after), phase 4 four times, then once for each of frontier_sweep's
+# three rounds (its inputs kept and timed after), phase 15 twice, and
+# phase 14 twice (rglru_scan's inputs of the first prefill timed after
+# each); the call numbers are filled in by ab_phase
 AB_TURN = r"""
 import sys
 sys.path.insert(0, "src")
@@ -293,6 +308,21 @@ cs.emit("scale_scan_off_walls", walls=walls)
 cs._entry(torch, "deliver_sweep", call, store.pop("deliver_sweep"))
 for _ in range(4):
     cs.gated_phase(torch)
+from repro_torch.api import build_scenario, run
+gated = cs.gated_spec()
+call = cs._ops()["frontier_sweep"]
+for c in (int(build_scenario(gated).add_round[-1]) + 1, %(idle)d, %(flush)d):
+    store, undo = cs._capture(torch, {"frontier_sweep": call},
+                              {"frontier_sweep": c})
+    try:
+        run(gated)
+    finally:
+        undo()
+    inp = store.pop("frontier_sweep")
+    e = cs._entry(torch, "frontier_sweep", call, inp)
+    cs.emit("frontier_at", round=int(inp["t"]), ms=e["ms"],
+            bound_ms=e["bound_ms"], max_abs_err=e["max_abs_err"])
+    del inp
 for _ in range(2):
     cs.lm_serve_phase(torch, np, "mamba2-2.7b")
 for _ in range(2):
@@ -304,11 +334,12 @@ for _ in range(2):
 
 def ab_phase(other: str) -> None:
     """--ab: the walls of scale_scan_off, gated, lm_serve_mamba2 and
-    lm_serve_recurrentgemma, and the card ms of deliver_sweep and
-    rglru_scan on their main-path inputs, in another checkout and in
-    this one, alternating on this card.  The other checkout lies inside
-    this one (e.g. under the gitignored build/), so that nothing is run
-    or built outside it."""
+    lm_serve_recurrentgemma, and the card ms of deliver_sweep,
+    frontier_sweep (at its three rounds) and rglru_scan on their
+    main-path inputs, in another checkout and in this one, alternating
+    on this card (each checkout's own bound).  The other checkout lies
+    inside this one (e.g. under the gitignored build/), so that nothing
+    is run or built outside it."""
     root = os.path.realpath(ROOT)
     path = os.path.realpath(os.path.join(root, other))
     if os.path.commonpath([path, root]) != root or path == root:
@@ -316,7 +347,9 @@ def ab_phase(other: str) -> None:
     trees = {"other": path, "this": root}
     for name in ("other", "this", "this", "other"):
         proc = subprocess.run(
-            [sys.executable, "-c", AB_TURN], cwd=trees[name],
+            [sys.executable, "-c", AB_TURN % dict(
+                idle=FRONTIER_IDLE_CALL, flush=FRONTIER_FLUSH_CALL)],
+            cwd=trees[name],
             capture_output=True, text=True, timeout=900,
             env=dict(os.environ, PYTHONPATH=os.path.join(trees[name], "src")))
         if proc.returncode:
@@ -328,7 +361,7 @@ def ab_phase(other: str) -> None:
             rec = json.loads(line)
             keep = ("walls", "engine_wall_seconds", "tokens_per_sec",
                     "prefill_ms", "decode_ms_per_tick", "name", "shape",
-                    "ms", "bound_ms", "max_abs_err")
+                    "ms", "bound_ms", "max_abs_err", "round")
             emit("ab_" + rec["phase"], tree=name, **{
                 k: v for k, v in rec.items() if k in keep})
 
@@ -603,12 +636,30 @@ def _bound(torch, name, inp, plain_out):
             ops += 3 * k * int(now.sum())
         nbytes += 32 * _sectors(torch, need_arr)
     elif name == "frontier_sweep":
-        active = (d == t) | ((d < t) & inp["is_app"][None, :])
-        rows_active = int(active.any(dim=1).sum())
+        # each slot table only where the output depends on it: do on rows
+        # with an app cell before t, fwd_ok on rows with a cell at t, the
+        # gates of the do slots of the former, adj and delay of the
+        # slots that send; the changed arr sectors read and written
+        do, fwd, gate = inp["do"], inp["fwd_ok"], inp["gate"]
+        now = d == t
+        early = (d < t) & inp["is_app"][None, :]
+        rows_early = early.any(dim=1)
+        rows_now = now.any(dim=1)
+        latest = torch.where(early, d, torch.full_like(d, -2)).amax(dim=1)
+        flush_slot = do & rows_early[:, None] & (latest[:, None] >= gate)
+        send_slot = (fwd & rows_now[:, None]) | flush_slot
         a_changed = plain_out[0] != inp["arr"]
-        nbytes = (4 * cells + w + 14 * k * rows_active + 8
+        nbytes = (4 * cells + w + 8 + k * int(rows_early.sum())
+                  + k * int(rows_now.sum())
+                  + 4 * int((do & rows_early[:, None]).sum())
+                  + 8 * int(send_slot.sum())
                   + 64 * _sectors(torch, a_changed))
-        ops = 3 * cells + 5 * k * int(active.sum())
+        # a compare a cell, a compare and a min a send
+        sends = int(sum(((now & fwd[:, kk, None])
+                         | (early & do[:, kk, None]
+                            & (d >= gate[:, kk, None]))).sum()
+                        for kk in range(k)))
+        ops = cells + 2 * sends
     elif name == "retire_scan":
         # every cell of delivered counts in some output
         nbytes = 4 * cells + 5 * n + 12 * w
@@ -632,8 +683,10 @@ def _bound(torch, name, inp, plain_out):
 
 def _capture(torch, calls, wanted):
     """Patch the kernel wrappers the engines call so that the arguments
-    of call number ``wanted[name]`` of each are kept (cloned); returns
-    the store and an undo function."""
+    of call number ``wanted[name]`` of each are kept (cloned), under
+    ``name``; where ``wanted[name]`` is a tuple of call numbers, those of
+    each, under ``(name, call)``.  Returns the store and an undo
+    function."""
     from repro_torch.core.vecsim import kernels as kx
     store, seen, saved = {}, {}, {}
     for name, (_, _, names, *_) in calls.items():
@@ -644,10 +697,13 @@ def _capture(torch, calls, wanted):
 
         def rec(*args, _name=name, _names=names, _orig=orig):
             seen[_name] = seen.get(_name, 0) + 1
-            if seen[_name] == wanted[_name]:
-                store[_name] = {
-                    key: (a.clone() if isinstance(a, torch.Tensor) else a)
-                    for key, a in zip(_names, args)}
+            want = wanted[_name]
+            if seen[_name] in (want if isinstance(want, tuple) else (want,)):
+                key = (_name, seen[_name]) if isinstance(want, tuple) \
+                    else _name
+                store[key] = {
+                    k: (a.clone() if isinstance(a, torch.Tensor) else a)
+                    for k, a in zip(_names, args)}
             return _orig(*args)
         setattr(kx, name, rec)
 
@@ -823,12 +879,16 @@ def check_main_path(torch):
         undo()
     gated = gated_spec()
     t_cap = int(build_scenario(gated).add_round[-1])
+    # frontier_sweep also at an idle and at the flush-heaviest round
+    fr_calls = (t_cap + 1, FRONTIER_IDLE_CALL, FRONTIER_FLUSH_CALL)
     store2, undo = _capture(torch, calls, {"deliver_sweep": t_cap + 1,
-                                           "frontier_sweep": t_cap + 1})
+                                           "frontier_sweep": fr_calls})
     try:
         run(gated)
     finally:
         undo()
+    frontier = [store2.pop(("frontier_sweep", c)) for c in fr_calls]
+    store2["frontier_sweep"] = frontier[0]
     store.update(store2)
     # the serving shape, from the spike of a shorter serving run
     store3, undo = _capture(torch, calls, {"latency_hist": 16,
@@ -852,7 +912,16 @@ def check_main_path(torch):
         if key in ("shape", "k", "ms", "ms_repeats", "wrapper_ms", "plain_ms",
                    "bound_ms", "bound_by", "max_abs_err", "plane_pass_ms")}
     fused["at_serve"]["round"] = int(serve_fused["t"])
+    # frontier_sweep's idle and flush-heaviest rounds ride in its entry
+    entry = next(e for e in entries if e["name"] == "frontier_sweep")
+    entry["round"] = int(frontier[0]["t"])
+    for key, inp in zip(("at_idle", "at_flush"), frontier[1:]):
+        entry[key] = {k: v for k, v in _entry(
+            torch, "frontier_sweep", calls["frontier_sweep"], inp).items()
+            if k in _AT_SCALE_KEYS}
+        entry[key]["round"] = int(inp["t"])
     store.clear()
+    frontier.clear()
     torch.cuda.empty_cache()
     return entries
 
@@ -892,6 +961,7 @@ def _entry(torch, name, call, inp):
                                           inp, inplace, 20, outs)
     if name == "slot_frontier":
         entry["gating"] = bool(inp["gating"])
+    if name in ("slot_frontier", "frontier_sweep"):
         entry["flushed"] = int(want[1])
     if name == "ring_apply":
         entry["library_ms"] = _library_ring_apply_ms(torch, inp, want)
@@ -920,6 +990,12 @@ def _library_ring_apply_ms(torch, inp, want):
     return _time_ms(torch, library, ("dest", "vals", "idx"),
                     dict(dest=dest, vals=vals, idx=idx), ("dest",), 20)
 
+
+# frontier_sweep's calls in the gated run (call c is round c - 1): round
+# 30, idle (no delivery, ping or flush in rounds 17-42 and 68-97), and
+# round 63, the most flushed sends (42)
+FRONTIER_IDLE_CALL = 31
+FRONTIER_FLUSH_CALL = 64
 
 TPU_LINES = {"fused_sweep": 121, "deliver_sweep": 75, "frontier_sweep": 139,
              "retire_reduce": 178, "retire_scan": 161, "latency_hist": 203,
@@ -1682,6 +1758,118 @@ def check_deliver_small(torch, dev):
     emit("deliver_sweep_small", cases=cases, widths=list(DELIVER_WIDTHS),
          rows=list(DELIVER_ROWS) + [600_000],
          variants=list(DELIVER_VARIANTS), max_abs_err=0)
+
+
+# frontier_sweep's walk: the widths of deliver_sweep's, every K in slot
+# groups of 32 (K of 33 and 40: two groups), and the cases of its CPU
+# mirror (tests/test_torch_frontier_vec.py)
+FRONTIER_KS = (1, 3, 17, 32, 33, 40)
+FRONTIER_VARIANTS = ("gate-equal-d", "gate-above-t", "gate-minus-1",
+                     "now-app-ping", "do-and-fwd", "bad-targets", "all-INF",
+                     "arr-lower", "all-flushing", "none-flushing", "shifted")
+
+
+def _frontier_case(torch, gen, dev, n, w, k, variant):
+    """frontier_sweep's inputs for one variant, made on the card from
+    ``gen``: 40% of the cells delivered before t, 10% at t, the rest
+    undelivered; gates from -1 to t + 2 on 40% of the slots; 30% of the
+    slots flushing, 60% forward-eligible; arr 40% finite."""
+    def rand(shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+    t = 12
+    minus = torch.full((n, w), -1, dtype=torch.int32, device=dev)
+    delivered = torch.where(rand((n, w)) < 0.4, ints(0, t, (n, w)), minus)
+    delivered[rand((n, w)) < 0.1] = t
+    arr = torch.where(rand((n, w)) < 0.4, ints(t + 1, t + 8, (n, w)),
+                      torch.full_like(minus, INF))
+    adj = ints(0, n, (n, k))
+    delay = ints(1, 5, (n, k))
+    gate = torch.where(rand((n, k)) < 0.4, ints(-1, t + 3, (n, k)),
+                       torch.full_like(adj, -1))
+    do = rand((n, k)) < 0.3
+    fwd_ok = rand((n, k)) < 0.6
+    is_app = rand(w) < 0.5
+    if variant == "gate-equal-d":
+        # each flushing slot's gate equal to a delivered value of its row
+        rows = torch.arange(n, device=dev)[:, None]
+        gate = delivered[rows, ints(0, w, (n, k)).long()].contiguous()
+        do = rand((n, k)) < 0.5
+    elif variant == "gate-above-t":
+        gate = ints(t + 1, t + 5, (n, k))
+        do.fill_(True)
+    elif variant == "gate-minus-1":
+        gate.fill_(-1)
+    elif variant == "now-app-ping":
+        delivered[rand((n, w)) < 0.5] = t
+        is_app[::2] = True
+        is_app[1::2] = False
+    elif variant == "do-and-fwd":
+        do = rand((n, k)) < 0.7
+        fwd_ok = do | (rand((n, k)) < 0.3)
+    elif variant == "bad-targets":
+        # -1, N and past it (dropped), the sender's own row, duplicates
+        pick = rand((n, k))
+        own = torch.arange(n, device=dev, dtype=torch.int32)[:, None]
+        adj = torch.where(pick < 0.2, -1, adj)
+        adj = torch.where((pick >= 0.2) & (pick < 0.3), n, adj)
+        adj = torch.where((pick >= 0.3) & (pick < 0.4), n + 5, adj)
+        adj = torch.where((pick >= 0.4) & (pick < 0.5), own.expand(n, k),
+                          adj).to(torch.int32)
+        adj[:, -1] = adj[:, 0]
+        adj = adj.contiguous()
+        do = rand((n, k)) < 0.5
+    elif variant == "all-INF":
+        arr.fill_(INF)
+    elif variant == "arr-lower":
+        arr = ints(0, t + 2, (n, w))
+    elif variant == "all-flushing":
+        do.fill_(True)
+    elif variant == "none-flushing":
+        do.fill_(False)
+    return dict(arr=arr, delivered=delivered, adj=adj, delay=delay, gate=gate,
+                do=do, fwd_ok=fwd_ok, is_app=is_app, t=t)
+
+
+def check_frontier_small(torch, dev):
+    """frontier_sweep against its plain version, byte for byte (arr and
+    the flushed count), on every width of DELIVER_WIDTHS at 37 and 4,099
+    rows: random inputs at every K of FRONTIER_KS, then each of
+    FRONTIER_VARIANTS with K in rotation ("shifted": delivered three
+    cells past a 16-byte boundary); and at 600,000 rows for W of 3, 128
+    and 140 at K = 17, random and shifted."""
+    kernel, plain, names, inplace = _ops()["frontier_sweep"][:4]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20267)
+    cases = []
+    for i, w in enumerate(DELIVER_WIDTHS):
+        for n in DELIVER_ROWS:
+            cases += [(n, w, k, "random") for k in FRONTIER_KS]
+            cases += [(n, w, FRONTIER_KS[(i + j) % len(FRONTIER_KS)], v)
+                      for j, v in enumerate(FRONTIER_VARIANTS)]
+    cases += [(600_000, w, 17, v) for w in (3, 128, 140)
+              for v in ("random", "shifted")]
+    flushed = 0
+    for n, w, k, variant in cases:
+        case = _frontier_case(torch, gen, dev, n, w, k, variant)
+        want = plain(*[case[key] for key in names])
+        if variant == "shifted":
+            case = dict(case, delivered=_offset(case["delivered"], 3))
+        got = _call(torch, kernel, names, case, inplace)
+        err = _max_err(torch, got, want)
+        if err:
+            raise AssertionError(
+                f"frontier_sweep differs from its plain version on ({n}, "
+                f"{w}), K = {k}, {variant}: max |err| {err}")
+        flushed += int(want[1])
+    torch.cuda.synchronize()
+    emit("frontier_sweep_small", cases=len(cases),
+         widths=list(DELIVER_WIDTHS), rows=list(DELIVER_ROWS) + [600_000],
+         ks=list(FRONTIER_KS), variants=["random"] + list(FRONTIER_VARIANTS),
+         flushed=flushed, max_abs_err=0)
 
 
 def _port_builders():

@@ -11,7 +11,8 @@ then runs, by the device the planes lie on:
 
 The sweeps update ``arr`` and ``delivered`` **in place** and return
 them: the span runner owns the planes, so no ``(N, W)`` copy is made per
-round (``csrc/sweep.cuh`` says why the in-place scatter is safe).
+round (``csrc/frontier_sweep.cu`` and ``csrc/ring_apply.cu`` say why
+their in-place scatter-min is safe).
 Boolean inputs reach the kernels as ``uint8`` views.  ``fused_sweep``
 pulls its forward through the inverse adjacency table of
 :func:`inverse_table`, built on the card and cached while ``adj`` is
