@@ -125,7 +125,27 @@ non-zero:
      weights: identical greedy tokens, logits within 2e-4; then
      ``python -m repro_torch.launch.serve --arch recurrentgemma-9b``.
 
-Then the kernels line (all eleven kernels), the card's name and power
+ 17. crossval — ``metrics.crossval`` (and the oracle) through the front
+     door on the card at N=256 (the twin of tests/test_vecsim.py:33):
+     dynamics none, link_add, churn and crash, each on the vec engine,
+     the windowed engine (window from the budget, full delivered
+     matrix) and the sharded engine (one rank), plus one Poisson live
+     run; every crossval_ok true, every oracle clean, each run
+     byte-identical to the same spec on the CPU, the vec side's and the
+     exact side's walls printed apart; fused_sweep, deliver_sweep,
+     frontier_sweep, retire_reduce and latency_hist each launched;
+ 18. table1 — benchmarks/bench_table1.py's cells through the front
+     door: the exact arm (N = 50, 100, 200, m_app = N/2, ring K =
+     max(3, N/32), pc and vc, oracle on) and the vec arm at N=50,000
+     (ring K=6, 32 uniform broadcasts, seed N): pc on the vec engine
+     (fused_sweep a round) and vc on the vector-clock engine, both on
+     the card and on the CPU, byte-equal in every field; overhead
+     bytes a message, comparisons a delivery, space entries, card and
+     CPU walls, and the vc drain's iterations and card ms; then a vc
+     cross-validation at N=256 on the card with equal clocks.
+
+Then the kernels line (all eleven kernels; launches summed over every
+main-path phase, 17 and 18 included), the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Needs
 one CUDA card; exits non-zero without one.
 
@@ -265,6 +285,12 @@ def main(argv=None) -> int:
         e["launches"] = launches[e["name"]]
     # -- 13-16. the LM substrate: kernels, serving, card vs CPU -------- #
     entries += lm_phases(torch, np, dev)
+    # -- 17-18. the exact engine's cross-validation and Table 1 -------- #
+    extra = crossval_phase(torch, np)
+    for key, v in table1_phase(torch, np).items():
+        extra[key] = extra.get(key, 0) + v
+    for e in entries:
+        e["launches"] += extra.get(e["name"], 0)
 
     # not measured here: the card ms of the earlier designs of five
     # kernels, copied from PERF.md's kernel table, for the eye beside
@@ -2692,6 +2718,246 @@ def lm_phases(torch, np, dev):
         e["launches"] = launches[e["name"]]
     lm_parity_phase(torch, np)
     return entries
+
+
+
+# --------------------------------------------------------------------- #
+# Phases 17-18: the exact engine's cross-validation and Table 1
+# --------------------------------------------------------------------- #
+CROSSVAL_N = 256
+CROSSVAL_DYNAMICS = ("none", "link_add", "churn", "crash")
+CROSSVAL_ENGINES = ("vec", "windowed", "sharded")
+# the kernels the cross-validated engines must run on the card
+CROSSVAL_KERNELS = ("fused_sweep", "deliver_sweep", "frontier_sweep",
+                    "retire_reduce", "latency_hist")
+TABLE1_EXACT_N = (50, 100, 200)
+TABLE1_VEC_N = 50_000
+TABLE1_VEC_MESSAGES = 32
+
+
+def crossval_spec(dynamics: str, engine: str, device=None, check=True):
+    """The twin of tests/test_vecsim.py:33 through the front door:
+    N=256, the dynamics family's default scenario, the vec side on
+    ``engine`` (the windowed and sharded ones with the full delivered
+    matrix, the sharded one on one rank; ``engine="live"`` serves
+    Poisson arrivals instead), replayed on the exact engine."""
+    from repro_torch.api import (DynamicsSpec, LiveSpec, MetricsSpec,
+                                 RunSpec, ShardSpec, WindowSpec)
+    metrics = MetricsSpec(crossval=check, oracle=check)
+    if engine == "live":
+        return RunSpec(mode="live", n=CROSSVAL_N, seed=7, device=device,
+                       dynamics=DynamicsSpec(kind=dynamics),
+                       live=LiveSpec(rate=4.0, messages=200),
+                       window=WindowSpec(window=64, seg_len=8,
+                                         collect="full"),
+                       metrics=metrics)
+    kw = {}
+    if engine != "vec":
+        kw["window"] = WindowSpec(collect="full")
+    if engine == "sharded":
+        kw["shard"] = ShardSpec(devices=1)
+    return RunSpec(n=CROSSVAL_N, engine=engine, device=device,
+                   dynamics=DynamicsSpec(kind=dynamics), metrics=metrics,
+                   **kw)
+
+
+class _ExactTimer:
+    """Times the exact engine's replays inside ``run``: wraps the
+    cross-validation module's ``run_exact`` while installed."""
+
+    def __init__(self):
+        from repro_torch.core.vecsim import crossval
+        self.mod, self.inner, self.seconds = crossval, crossval.run_exact, []
+
+    def __enter__(self):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return self.inner(*a, **kw)
+            finally:
+                self.seconds.append(time.perf_counter() - t0)
+        self.mod.run_exact = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.run_exact = self.inner
+
+
+def crossval_phase(torch, np):
+    """Phase 17: ``metrics.crossval`` on the card — each dynamics family
+    on the vec, windowed and sharded engines and one live run, every
+    crossval_ok true and every oracle clean, each run byte-identical to
+    the same spec on the CPU; returns the kernels' launches."""
+    from repro_torch.api import run
+    from repro_torch.core.vecsim import kernels as kx
+    cases = [(d, e) for d in CROSSVAL_DYNAMICS for e in CROSSVAL_ENGINES]
+    cases.append(("none", "live"))
+    total = {}
+    for dynamics, engine in cases:
+        torch.cuda.synchronize()
+        kx.reset_launches()
+        with _ExactTimer() as timer:
+            t0 = time.perf_counter()
+            rep = run(crossval_spec(dynamics, engine))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {k: v for k, v in kx.LAUNCHES.items() if v}
+        name = f"{dynamics}/{engine}"
+        assert rep.device.startswith(CARD), (name, rep.device)
+        assert rep.crossval_ok is True, name
+        assert rep.oracle.ok, (name, rep.oracle.summary())
+        assert len(timer.seconds) == 1, (name, timer.seconds)
+        assert launches, (name, "no kernel launched")
+        cpu = run(crossval_spec(dynamics, engine, device="cpu",
+                                check=False))
+        a, b = rep.result, cpu.result
+        assert vars(a.stats) == vars(b.stats), name
+        np.testing.assert_array_equal(a.delivered, b.delivered, name)
+        np.testing.assert_array_equal(a.series, b.series, name)
+        for key in a.state:
+            np.testing.assert_array_equal(a.state[key], b.state[key],
+                                          f"{name}/{key}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        emit("crossval", dynamics=dynamics, engine=rep.engine,
+             mode=rep.spec.mode, n=rep.n, messages=rep.m_app,
+             rounds=rep.rounds, window=rep.window,
+             delivered_frac=rep.delivered_frac, crossval_ok=rep.crossval_ok,
+             oracle=rep.oracle.summary(), card_equals_cpu=True,
+             vec_wall_seconds=rep.wall_seconds,
+             exact_wall_seconds=timer.seconds[0], run_wall_seconds=wall,
+             launches=launches)
+    missing = [k for k in CROSSVAL_KERNELS if not total.get(k)]
+    assert not missing, ("crossval launched none of", missing, total)
+    emit("crossval_launches", runs=len(cases), launches=total)
+    return total
+
+
+def table1_spec(protocol: str, engine: str, n: int, m_app: int, k: int,
+                device=None, oracle: bool = False):
+    """One cell of benchmarks/bench_table1.py (``_spec``): a ring
+    overlay of out-degree ``k``, ``m_app`` uniform broadcasts, seed n."""
+    from repro_torch.api import (MetricsSpec, RunSpec, TopologySpec,
+                                 TrafficSpec)
+    return RunSpec(protocol=protocol, engine=engine, device=device, n=n,
+                   seed=n, topology=TopologySpec(kind="ring", k=k),
+                   traffic=TrafficSpec(kind="uniform", messages=m_app),
+                   metrics=MetricsSpec(oracle=oracle))
+
+
+_VC_FIELDS = ("delivered", "rcv", "vc", "origins", "stamp", "series")
+
+
+def _vc_equal(np, a, b, what):
+    for key in _VC_FIELDS:
+        x, y = getattr(a, key), getattr(b, key)
+        assert x.dtype == y.dtype, (what, key)
+        np.testing.assert_array_equal(x, y, f"{what}/{key}")
+    for key in b.state:
+        np.testing.assert_array_equal(a.state[key], b.state[key],
+                                      f"{what}/state/{key}")
+    assert vars(a.stats) == vars(b.stats), what
+    assert (a.comparisons, a.max_pending) == (b.comparisons,
+                                              b.max_pending), what
+
+
+def table1_phase(torch, np):
+    """Phase 18: Table 1 through the front door — bench_table1's exact
+    arm (N = 50, 100, 200; pc and vc, oracle on) and its vec arm at the
+    largest size (N=50,000, ring K=6, 32 broadcasts; pc on the vec
+    engine, vc on the vector-clock engine, both on the card), the vc
+    card run byte-equal to the CPU run, and a vc cross-validation at
+    N=256 on the card; returns the kernels' launches."""
+    from repro_torch.api import build_scenario, run
+    from repro_torch.core.vecsim import (churn_scenario, cross_validate,
+                                         kernels as kx, run_vec_vc)
+    for n in TABLE1_EXACT_N:
+        m_app, k = n // 2, max(3, n // 32)
+        for protocol in ("pc", "vc"):
+            rep = run(table1_spec(protocol, "exact", n, m_app, k,
+                                  oracle=True))
+            assert rep.engine == "exact" and rep.device == "object"
+            assert rep.oracle.ok, (n, protocol, rep.oracle.summary())
+            assert rep.delivered_frac == 1.0, (n, protocol)
+            procs = rep.result.procs.values()
+            emit("table1", arm="exact", protocol=protocol, n=n,
+                 messages=m_app, k=k,
+                 overhead_bytes_per_msg=rep.extras["overhead_bytes_per_msg"],
+                 comparisons_per_delivery=rep.extras.get(
+                     "comparisons_per_delivery"),
+                 space_entries=(rep.extras["space_entries_max"]
+                                if protocol == "vc" else
+                                max(len(p.received) for p in procs)),
+                 deliveries=rep.stats.deliveries,
+                 host_wall_seconds=rep.wall_seconds,
+                 oracle=rep.oracle.summary())
+
+    n, m_app, k = TABLE1_VEC_N, TABLE1_VEC_MESSAGES, 6
+    launches = {}
+    for protocol in ("pc", "vc"):
+        spec = table1_spec(protocol, "vec", n, m_app, k)
+        torch.cuda.synchronize()
+        kx.reset_launches()
+        rep = run(spec)
+        torch.cuda.synchronize()
+        for key, v in kx.LAUNCHES.items():
+            if v:
+                launches[key] = launches.get(key, 0) + v
+        assert rep.engine == "vec" and rep.device.startswith(CARD)
+        assert rep.delivered_frac == 1.0, (protocol, rep.delivered_frac)
+        scn = build_scenario(spec)
+        t0 = time.perf_counter()
+        if protocol == "pc":
+            assert kx.LAUNCHES["fused_sweep"] == rep.rounds, kx.LAUNCHES
+            cpu = run(table1_spec(protocol, "vec", n, m_app, k,
+                                  device="cpu"))
+            cpu_wall = cpu.wall_seconds
+            a, b = rep.result, cpu.result
+            assert vars(a.stats) == vars(b.stats)
+            np.testing.assert_array_equal(a.delivered, b.delivered)
+            np.testing.assert_array_equal(a.series, b.series)
+            drain = {}
+            space = m_app      # every process ends up knowing every id
+        else:
+            assert not any(kx.LAUNCHES.values()), kx.LAUNCHES
+            cpu = run_vec_vc(scn, device="cpu", time_drain=True)
+            cpu_wall = time.perf_counter() - t0
+            _vc_equal(np, rep.result, cpu, "table1/vc")
+            t0 = time.perf_counter()
+            timed = run_vec_vc(scn, time_drain=True)
+            timed_wall = time.perf_counter() - t0
+            _vc_equal(np, timed, cpu, "table1/vc/timed")
+            iters = timed.drain_iters
+            drain = dict(drain_rounds=int((iters > 0).sum()),
+                         drain_iterations=int(iters.sum()),
+                         drain_iterations_max=int(iters.max()),
+                         drain_card_ms=timed.drain_ms,
+                         drain_timed_run_wall_seconds=timed_wall,
+                         drain_cpu_ms=cpu.drain_ms)
+            space = rep.extras["space_entries_max"]
+        emit("table1", arm="vec", protocol=protocol, n=n, messages=m_app,
+             k=k, rounds=rep.rounds,
+             overhead_bytes_per_msg=rep.extras["overhead_bytes_per_msg"],
+             comparisons_per_delivery=rep.extras.get(
+                 "comparisons_per_delivery"),
+             max_pending=rep.extras.get("max_pending"),
+             space_entries=space, sends=rep.stats.sent_messages,
+             deliveries=rep.stats.deliveries,
+             card_wall_seconds=rep.wall_seconds,
+             cpu_wall_seconds=cpu_wall, card_equals_cpu=True, **drain)
+
+    scn = churn_scenario(seed=CROSSVAL_N + 17, n=CROSSVAL_N)
+    t0 = time.perf_counter()
+    out = cross_validate(scn, protocol="vc")
+    assert out["vec"].device.startswith(CARD)
+    assert out["vec_multiset"] == out["exact_multiset"]
+    assert out["vec_clocks"] == out["exact_clocks"]
+    assert out["vec_report"].ok and out["exact_report"].ok
+    emit("table1_vc_crossval", n=scn.n, messages=scn.m_app,
+         adds=scn.n_adds, deliveries=len(out["vec_multiset"]),
+         clocks_equal=True, multisets_equal=True,
+         seconds=time.perf_counter() - t0)
+    return launches
 
 
 if __name__ == "__main__":

@@ -14,6 +14,9 @@ rows).  Runs on the card unless ``--device cpu``.
     python -m repro_torch.api --device cpu --engine sharded --devices 2 \
         --n 256 --topology kregular --k 6 --traffic poisson --rate 2 \
         --messages 30 --window 24 --collect full --oracle
+    python -m repro_torch.api --device cpu --n 256 --dynamics churn \
+        --messages 12 --oracle --crossval
+    python -m repro_torch.api --protocol vc --engine exact --n 100
     python -m repro_torch.api --spec experiment.json
     python -m repro_torch.api --list            # registry keys
 """
@@ -115,6 +118,8 @@ def build_parser() -> argparse.ArgumentParser:
     met = ap.add_argument_group("metrics")
     met.add_argument("--oracle", action="store_true", default=None,
                      help="happens-before oracle check on the trace")
+    met.add_argument("--crossval", action="store_true", default=None,
+                     help="replay on the exact engine and compare")
     obs = ap.add_argument_group("observability")
     obs.add_argument("--trace-out", metavar="PATH",
                      help="write structured trace spans as Perfetto-"
@@ -176,7 +181,7 @@ _FLAG_MAP = [
     ("queue_cap", "live", "queue_cap"),
     ("admit_cap", "live", "per_round_cap"),
     ("slo_p99", "live", "slo_p99"),
-    ("oracle", "metrics", "oracle"),
+    ("oracle", "metrics", "oracle"), ("crossval", "metrics", "crossval"),
     ("trace_out", "obs", "trace_out"),
     ("metrics_out", "obs", "metrics_out"),
     ("sink", "obs", "sink"), ("spans", "obs", "spans"),
@@ -279,6 +284,9 @@ def main(argv=None) -> int:
         print(json.dumps(rep.to_dict(), indent=2))
     if rep.oracle is not None and not rep.oracle.ok:
         print(f"oracle FAILED: {rep.oracle.summary()}", file=sys.stderr)
+        return 1
+    if rep.crossval_ok is False:
+        print("cross-validation FAILED: engines disagree", file=sys.stderr)
         return 1
     return 0
 

@@ -93,12 +93,15 @@ OPS_SINKS = Registry("ops sink", items=_OPS_SINKS)
 
 @dataclass(frozen=True)
 class ProtocolEntry:
-    """One causal-broadcast protocol; ``mode`` is the
-    :class:`VecScenario` mode the engines execute."""
+    """One causal-broadcast protocol.  ``mode`` is the
+    :class:`VecScenario` mode the pc/r engines execute (None = the
+    protocol has its own vec runner); ``windowed`` marks streaming-window
+    support."""
 
     name: str
     description: str
-    mode: str
+    mode: Optional[str]
+    windowed: bool
 
 
 @dataclass(frozen=True)
@@ -130,10 +133,14 @@ def describe_entry(value: Any) -> str:
 
 PROTOCOLS.register("pc", ProtocolEntry(
     "pc", "PC-broadcast: O(1) control info, link-safety ping gating "
-    "(the paper's Algorithm 2)", mode="pc"))
+    "(the paper's Algorithm 2)", mode="pc", windowed=True))
 PROTOCOLS.register("r", ProtocolEntry(
     "r", "R-broadcast: flooding without link gating (causally unsafe "
-    "on dynamic overlays — the Fig. 3 foil)", mode="r"))
+    "on dynamic overlays — the Fig. 3 foil)", mode="r", windowed=True))
+PROTOCOLS.register("vc", ProtocolEntry(
+    "vc", "vector-clock causal broadcast: O(N) piggybacked clocks, "
+    "O(W·N) delivery drain (Table 1 baseline, measured)", mode=None,
+    windowed=False))
 
 TRAFFIC.register("uniform", "unique (origin, round) broadcasts spread "
                  "uniformly over the schedule window (batch scheduling; "
@@ -165,7 +172,10 @@ class ScenarioEntry:
 
 
 def _mode(spec: RunSpec) -> str:
-    return PROTOCOLS.get(spec.protocol).mode
+    """The scenario mode the spec's protocol runs; a protocol with its
+    own vec runner (``vc``) reads the pc schedule."""
+    entry = PROTOCOLS.get(spec.protocol)
+    return entry.mode if entry.mode is not None else "pc"
 
 
 def _build_none(spec: RunSpec):

@@ -3,9 +3,11 @@
 ``run(spec)`` resolves every axis of a validated :class:`RunSpec`
 through the registries, builds (or accepts) the scenario, picks the
 engine, executes on the spec's device, and returns a :class:`RunReport`
-— with the telemetry of the spec's ``obs`` section (latency histograms
-and their percentiles in the extras, spans, metrics and trace files,
-provenance and the causality audit).  ``mode="live"`` serves open-loop
+whatever ran underneath — the exact event simulator, the monolithic vec
+engine, the streaming windowed or sharded engine, or the vectorized
+vector-clock baseline — with the telemetry of the spec's ``obs``
+section (latency histograms and their percentiles in the extras, spans,
+metrics and trace files, provenance and the causality audit).  ``mode="live"`` serves open-loop
 traffic through a streaming engine (:class:`LiveLoop`) instead.
 
 Engine auto-selection (the JAX package's DESIGN.md §3.3 rule): with
@@ -22,6 +24,15 @@ Engine auto-selection (the JAX package's DESIGN.md §3.3 rule): with
      ``D > 1``, the windowed engine otherwise.  ``D`` is
      ``shard.devices`` if set, else the running process group's size,
      else the cards ``torch.cuda.device_count()`` shows (1 on the CPU).
+     A protocol with no windowed engine (``vc``) always runs on the
+     monolithic one.
+
+The exact event engine is never auto-selected — it is the O(objects)
+reference implementation, runs Python objects on the host (its report's
+``device`` reads ``"object"``) and must be asked for by name.
+``metrics.crossval`` replays the scenario on it and compares the
+delivered multisets with the vec side's, which runs on the spec's
+device.
 
 **Ranks.**  A sharded run over ``D > 1`` ranks with no process group
 running starts them itself: ``run`` spawns ``D`` processes
@@ -48,6 +59,7 @@ import torch.distributed as dist
 from ..backend import resolve_device
 from ..core.oracle import OracleReport, check_trace
 from ..core.types import NetStats
+from ..core.vecsim import crossval as _crossval
 from ..core.vecsim.live import LiveLoop, LiveReport
 from ..core.vecsim.metrics import build_trace
 from ..core.vecsim.scenario import VecScenario
@@ -55,8 +67,10 @@ from ..core.vecsim.shard import execute_sharded
 from ..core.vecsim.shard.mesh import require_cards
 from ..core.vecsim.sim import execute_vec
 from ..core.vecsim.stream import execute_windowed
+from ..core.vecsim.vc import run_vec_vc
 from ..obs.audit import CausalAuditor
 from ..obs.flight import FlightRecorder, provenance_trace_events
+from ..obs.graphs import overhead_per_message
 from ..obs.hist import percentiles_from_hist
 from ..obs.ops import OpsPlane
 from ..obs.sinks import write_chrome_trace
@@ -75,6 +89,7 @@ class RunReport:
     spec: RunSpec
     engine: str                # engine that actually ran
     device: str                # torch device the engine ran on
+    #                            ("object" for the exact engine)
     window: Optional[int]      # live columns (streaming engines only)
     wall_seconds: float
     n: int
@@ -82,9 +97,10 @@ class RunReport:
     rounds: int
     stats: NetStats
     delivered_frac: float
-    mean_latency: float        # rounds
+    mean_latency: float        # rounds (vec) / sim-time units (exact)
     extras: Dict[str, float] = field(default_factory=dict)
     oracle: Optional[OracleReport] = None
+    crossval_ok: Optional[bool] = None
     result: Any = None         # the raw engine result object
     scenario: Any = None       # the VecScenario that ran
     live: Optional[LiveReport] = None   # serving report (mode="live")
@@ -106,6 +122,7 @@ class RunReport:
             extras={k: (v if isinstance(v, (int, str)) else float(v))
                     for k, v in self.extras.items()},
             oracle_ok=None if self.oracle is None else self.oracle.ok,
+            crossval_ok=self.crossval_ok,
             live=None if self.live is None else self.live.to_dict(),
         )
 
@@ -120,7 +137,8 @@ def build_scenario(spec: RunSpec) -> VecScenario:
         scn = spec.scenario
     else:
         scn = SCENARIOS.get(spec.dynamics.kind).build(spec)
-    want_mode = PROTOCOLS.get(spec.protocol).mode
+    proto = PROTOCOLS.get(spec.protocol)
+    want_mode = proto.mode if proto.mode is not None else scn.mode
     if scn.mode != want_mode or scn.always_gate != spec.always_gate:
         scn = replace(scn, mode=want_mode,
                       always_gate=spec.always_gate).validate()
@@ -166,7 +184,8 @@ def select_engine(spec: RunSpec, scn: VecScenario
         if (spec.shard.devices or 1) > 1:
             return "sharded", spec.window.window
         return "windowed", spec.window.window
-    if 8 * scn.n * max(scn.m_total, 1) <= spec.memory_budget_mb * 2 ** 20:
+    if 8 * scn.n * max(scn.m_total, 1) <= spec.memory_budget_mb * 2 ** 20 \
+            or not PROTOCOLS.get(spec.protocol).windowed:
         return "vec", None
     devices = _device_count(spec)
     if devices > 1:
@@ -184,7 +203,50 @@ def _snapshot_round(spec: RunSpec, scn: VecScenario) -> Optional[int]:
 # --------------------------------------------------------------------- #
 # Engine adapters (registered under repro_torch.api.ENGINES)
 # --------------------------------------------------------------------- #
-def _vec_extras(res) -> Dict[str, float]:
+def _latency_from_trace(trace) -> float:
+    t_bcast: Dict[Tuple[int, int], float] = {}
+    lat_sum, lat_cnt = 0.0, 0
+    for t, kind, pid, m in trace:
+        if kind not in ("broadcast", "deliver"):
+            continue                      # open/close/crash carry no AppMsg
+        key = (m.origin, m.counter)
+        if kind == "broadcast":
+            t_bcast[key] = t
+        elif key in t_bcast:
+            lat_sum += t - t_bcast[key]
+            lat_cnt += 1
+    return lat_sum / lat_cnt if lat_cnt else float("nan")
+
+
+def _run_exact(spec: RunSpec, scn: VecScenario, window: Optional[int],
+               snapshot_round: Optional[int], device, obs=None):
+    net = _crossval.run_exact(scn, seed=spec.seed, protocol=spec.protocol,
+                              snapshot_round=snapshot_round)
+    n_bcast = sum(1 for _, kind, _, _ in net.trace if kind == "broadcast")
+    alive = sum(1 for p in net.procs.values() if not p.crashed)
+    frac = (net.stats.deliveries / (alive * n_bcast)
+            if alive * n_bcast else 1.0)
+    extras: Dict[str, float] = {
+        "overhead_bytes_per_msg": overhead_per_message(net)}
+    if spec.protocol == "vc":
+        comparisons = sum(p.comparisons for p in net.procs.values())
+        extras["comparisons_per_delivery"] = (
+            comparisons / max(net.stats.deliveries, 1))
+        extras["max_pending"] = max(p.max_pending
+                                    for p in net.procs.values())
+        extras["space_entries_max"] = max(p.local_space_entries()
+                                          for p in net.procs.values())
+    return net, net.stats, frac, _latency_from_trace(net.trace), extras
+
+
+def _vec_extras(spec: RunSpec, res) -> Dict[str, float]:
+    if spec.protocol == "vc":
+        return {
+            "overhead_bytes_per_msg": res.overhead_bytes_per_message(),
+            "comparisons_per_delivery": res.comparisons_per_delivery(),
+            "max_pending": res.max_pending,
+            "space_entries_max": int((res.vc > 0).sum(axis=1).max()),
+        }
     return {
         "overhead_bytes_per_msg": res.stats.control_bytes
         / max(res.stats.sent_messages, 1),
@@ -195,9 +257,16 @@ def _vec_extras(res) -> Dict[str, float]:
 
 def _run_vec(spec: RunSpec, scn: VecScenario, window: Optional[int],
              snapshot_round: Optional[int], device, obs=None):
-    res = execute_vec(scn, device=device, snapshot_round=snapshot_round)
+    if spec.protocol == "vc":
+        if snapshot_round is not None:
+            raise SpecError("metrics.snapshot is not supported for the "
+                            "'vc' protocol (it has no gating state to "
+                            "snapshot)")
+        res = run_vec_vc(scn, device=device)
+    else:
+        res = execute_vec(scn, device=device, snapshot_round=snapshot_round)
     return (res, res.stats, res.delivered_frac(), res.mean_latency(),
-            _vec_extras(res))
+            _vec_extras(spec, res))
 
 
 def _run_windowed(spec: RunSpec, scn: VecScenario, window: Optional[int],
@@ -209,7 +278,7 @@ def _run_windowed(spec: RunSpec, scn: VecScenario, window: Optional[int],
         scn, window, device=device, horizon=spec.window.horizon,
         seg_len=spec.window.seg_len, snapshot_round=snapshot_round,
         collect=spec.window.collect, obs=obs)
-    extras = _vec_extras(res)
+    extras = _vec_extras(spec, res)
     extras["peak_live"] = res.peak_live
     extras["expired_columns"] = int(res.expired.sum())
     return (res, res.stats, res.delivered_frac(), res.mean_latency(),
@@ -218,6 +287,10 @@ def _run_windowed(spec: RunSpec, scn: VecScenario, window: Optional[int],
 
 def _run_sharded(spec: RunSpec, scn: VecScenario, window: Optional[int],
                  snapshot_round: Optional[int], device, obs=None):
+    if spec.protocol == "vc":
+        raise SpecError("protocol 'vc' has no sharded engine (its "
+                        "delivery drain is a data-dependent fixpoint); "
+                        "use engine='vec'")
     if window is None:
         # explicit engine="sharded" without a window: the per-rank
         # budget rule over the ranks the run uses
@@ -227,7 +300,7 @@ def _run_sharded(spec: RunSpec, scn: VecScenario, window: Optional[int],
         horizon=spec.window.horizon, seg_len=spec.window.seg_len,
         snapshot_round=snapshot_round, collect=spec.window.collect,
         scan=spec.shard.scan, profile=spec.shard.profile, obs=obs)
-    extras = _vec_extras(res)
+    extras = _vec_extras(spec, res)
     extras["peak_live"] = res.peak_live
     extras["expired_columns"] = int(res.expired.sum())
     extras["devices"] = res.n_devices
@@ -243,6 +316,9 @@ def _run_sharded(spec: RunSpec, scn: VecScenario, window: Optional[int],
             extras)
 
 
+ENGINES.register("exact", EngineEntry(
+    "exact", "O(objects) discrete-event reference simulator on the host "
+    "(never auto-selected; paper-faithful sub-round timing)", _run_exact))
 ENGINES.register("vec", EngineEntry(
     "vec", "monolithic vectorized lockstep engine: dense (N, M_total) "
     "planes on the device", _run_vec))
@@ -420,7 +496,7 @@ def _run_live(spec: RunSpec, device, scn: VecScenario, engine_name: str,
     lr = loop.run()
     res = lr.result
 
-    extras = _vec_extras(res)
+    extras = _vec_extras(spec, res)
     extras["peak_live"] = lr.peak_live
     for key in ("offered", "admitted", "shed_queue", "shed_policy",
                 "unserved", "queue_peak", "backpressure_ticks",
@@ -442,9 +518,13 @@ def _run_live(spec: RunSpec, device, scn: VecScenario, engine_name: str,
         mean_latency=res.mean_latency(), extras=extras, result=res,
         scenario=lr.scenario, live=lr, obs=obs)
     # the live result is re-indexed to the admitted scenario, so the
-    # batch-mode checker runs on it unchanged
+    # batch-mode checkers run on it unchanged (on rank 0 of several)
     if spec.metrics.oracle and _rank() == 0:
-        report.oracle = _check_oracle(lr.scenario, res)
+        report.oracle = _check_oracle(lr.scenario, engine_name, res)
+    if spec.metrics.crossval and _rank() == 0:
+        report.crossval_ok = _check_crossval(spec, lr.scenario,
+                                             report.window, engine_name,
+                                             res, device)
     _write_obs_outputs(spec, report)
     return report
 
@@ -484,14 +564,18 @@ def run(spec: RunSpec, on_tick=None) -> RunReport:
     _obs_extras(obs, extras)
 
     report = RunReport(
-        spec=spec, engine=engine_name, device=str(device),
+        spec=spec, engine=engine_name,
+        device="object" if engine_name == "exact" else str(device),
         window=(result.window if engine_name in ("windowed", "sharded")
                 else None),
         wall_seconds=wall, n=scn.n, m_app=scn.m_app, rounds=scn.rounds,
         stats=stats, delivered_frac=frac, mean_latency=latency,
         extras=extras, result=result, scenario=scn, obs=obs)
     if spec.metrics.oracle and _rank() == 0:
-        report.oracle = _check_oracle(scn, result)
+        report.oracle = _check_oracle(scn, engine_name, result)
+    if spec.metrics.crossval and _rank() == 0:
+        report.crossval_ok = _check_crossval(spec, scn, report.window,
+                                             engine_name, result, device)
     _write_obs_outputs(spec, report)
     return report
 
@@ -538,7 +622,11 @@ def _rank_main(rank: int, world: int, device_type: str, store: str,
         dist.destroy_process_group()
 
 
-def _check_oracle(scn: VecScenario, result) -> OracleReport:
+def _check_oracle(scn: VecScenario, engine: str, result) -> OracleReport:
+    if engine == "exact":
+        crashed = {pid for pid, p in result.procs.items() if p.crashed}
+        return check_trace(result.trace, crashed=crashed,
+                           all_pids=set(range(scn.n)))
     if result.delivered is None:
         raise SpecError(
             "metrics.oracle needs the full delivered matrix; set "
@@ -547,3 +635,22 @@ def _check_oracle(scn: VecScenario, result) -> OracleReport:
     crashed = set(np.nonzero(result.state["crashed"])[0].tolist())
     return check_trace(build_trace(result), crashed=crashed,
                        all_pids=set(range(scn.n)))
+
+
+def _check_crossval(spec: RunSpec, scn: VecScenario,
+                    window: Optional[int], engine: str, result,
+                    device) -> bool:
+    """Replay ``scn`` on the exact engine and compare its delivered
+    multiset (and, for ``vc``, its final clocks) with the vec side's:
+    the run just executed when it carries the full delivered matrix,
+    else a fresh run on ``device`` (the exact engine's own run cannot
+    serve as the vec side)."""
+    reuse = (result if engine != "exact"
+             and getattr(result, "delivered", None) is not None else None)
+    out = _crossval.cross_validate(
+        scn, seed=spec.seed, device=device, window=window,
+        protocol=spec.protocol, vec_result=reuse)
+    ok = out["vec_multiset"] == out["exact_multiset"]
+    if spec.protocol == "vc":
+        ok = ok and out["vec_clocks"] == out["exact_clocks"]
+    return bool(ok)

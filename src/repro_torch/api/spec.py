@@ -3,12 +3,12 @@
 Same sections and field names as the JAX package's ``repro.api.spec``
 (topology, traffic, dynamics, window, shard, live, metrics, obs), with
 one change: ``backend`` becomes ``device`` — ``None`` (the card, the
-default) or ``"cpu"``.  :meth:`RunSpec.from_dict` accepts the JAX
-package's ``RunSpec.to_dict()`` output: its ``backend`` key is dropped,
-and what this port does not run yet (the exact engine's
-cross-validation, the vector-clock protocol) is accepted only at its
-defaults — any other value raises :class:`SpecError` naming the slice
-of the port that will bring it.
+default) or ``"cpu"``.  The same protocols (``pc``, ``r`` and the
+vector-clock baseline ``vc``), engines (``exact``, ``vec``,
+``windowed``, ``sharded``) and metrics (the oracle, the exact-engine
+cross-validation) as the reference.  :meth:`RunSpec.from_dict` accepts
+the JAX package's ``RunSpec.to_dict()`` output; its ``backend`` key is
+dropped.
 
 Validation is eager: :meth:`RunSpec.validate` raises :class:`SpecError`
 naming the offending field and the valid registry keys.
@@ -26,7 +26,7 @@ __all__ = ["SpecError", "TopologySpec", "TrafficSpec", "DynamicsSpec",
 
 
 class SpecError(ValueError):
-    """An invalid, inconsistent or not-yet-ported :class:`RunSpec`."""
+    """An invalid or inconsistent :class:`RunSpec`."""
 
 
 @dataclass(frozen=True)
@@ -179,20 +179,7 @@ class MetricsSpec:
 
     snapshot: Optional[Union[int, str]] = None  # round | "last_churn"
     oracle: bool = False       # happens-before oracle on the trace
-
-
-# Values of the JAX package's RunSpec that this port does not run yet,
-# and the slice of the port that will bring them.
-_LATER_VALUES = {
-    ("protocol", "vc"): "the vector-clock baseline slice",
-    ("engine", "exact"): "the exact-engine slice",
-}
-
-
-def _later(what: str, slice_name: str) -> SpecError:
-    return SpecError(f"{what} is not ported to repro_torch yet (it comes "
-                     f"with {slice_name}); run it with the JAX package "
-                     "repro.api")
+    crossval: bool = False     # replay on the exact engine and compare
 
 
 @dataclass(frozen=True)
@@ -200,9 +187,9 @@ class RunSpec:
     """One experiment, declaratively:
     ``repro_torch.api.run(RunSpec(...))``."""
 
-    protocol: str = "pc"       # pc | r   (repro_torch.api.PROTOCOLS)
+    protocol: str = "pc"       # pc | r | vc   (repro_torch.api.PROTOCOLS)
     mode: str = "batch"        # batch (pre-scripted) | live (open-loop)
-    engine: str = "auto"       # auto | vec | windowed | sharded
+    engine: str = "auto"       # auto | exact | vec | windowed | sharded
     device: Optional[str] = None   # None = the card | "cuda" | "cpu"
     n: int = 64                # processes
     seed: int = 0
@@ -233,9 +220,6 @@ class RunSpec:
                     f"{fld}={value!r} is not a registered key; choose "
                     f"from {sorted(registry.keys())}")
 
-        for (fld, value), slice_name in _LATER_VALUES.items():
-            if getattr(self, fld) == value:
-                raise _later(f"{fld}={value!r}", slice_name)
         for fld, value in (("n", self.n), ("seed", self.seed),
                            ("pong_delay", self.pong_delay),
                            ("memory_budget_mb", self.memory_budget_mb)):
@@ -274,14 +258,23 @@ class RunSpec:
         if self.window.collect not in ("auto", "full", "aggregate"):
             raise SpecError(f"window.collect={self.window.collect!r} must "
                             "be one of ['aggregate', 'auto', 'full']")
-        if self.window.window is not None and self.engine == "vec":
+        proto = reg.PROTOCOLS.get(self.protocol)
+        wants_window = (self.engine in ("windowed", "sharded")
+                        or self.window.window is not None)
+        if wants_window and not proto.windowed:
+            raise SpecError(
+                f"protocol {self.protocol!r} has no windowed engine "
+                "(its state is O(N·m_app) already); use engine='vec' "
+                "and drop window.window")
+        if self.window.window is not None \
+                and self.engine in ("vec", "exact"):
             raise SpecError(
                 f"window.window={self.window.window} only applies to "
-                "engine 'windowed', 'sharded' or 'auto' (got "
-                "engine='vec'); the monolithic engine would silently "
-                "ignore it")
+                f"engine 'windowed', 'sharded' or 'auto' (got engine="
+                f"{self.engine!r}); the monolithic/exact engines would "
+                "silently ignore it")
         sh = self.shard
-        one_device = self.engine in ("vec", "windowed")
+        one_device = self.engine in ("vec", "exact", "windowed")
         if sh.devices is not None:
             if not isinstance(sh.devices, int) \
                     or isinstance(sh.devices, bool) or sh.devices < 1:
@@ -335,11 +328,12 @@ class RunSpec:
                             "records; set obs.provenance (e.g. 1 to "
                             "sample everything)")
         if ob.provenance is not None and self.mode != "live" \
-                and self.engine == "vec":
+                and self.engine in ("vec", "exact"):
             raise SpecError(
-                "obs.provenance needs a streaming engine (the hooks ride "
-                "column retirement); engine='vec' has no window to "
-                "sample — use 'windowed' or 'auto'")
+                f"obs.provenance needs a streaming engine (the hooks "
+                f"ride column retirement); engine={self.engine!r} has "
+                "no window to sample — use 'windowed', 'sharded' or "
+                "'auto'")
         if self.mode != "live" and (ob.ops_out is not None or ob.watch):
             raise SpecError("obs.ops_out/obs.watch are the live ops "
                             "plane; they need mode='live'")
@@ -370,6 +364,9 @@ class RunSpec:
                     f"mode='live' serves through a streaming engine; "
                     f"engine must be 'auto', 'windowed' or 'sharded' "
                     f"(got {self.engine!r})")
+            if self.protocol == "vc":
+                raise SpecError("mode='live' needs a windowed protocol; "
+                                "'vc' has no streaming engine")
             if snap is not None:
                 raise SpecError("metrics.snapshot is not supported in "
                                 "mode='live' (segment boundaries are "
@@ -396,8 +393,7 @@ class RunSpec:
         """Build a spec from a (possibly partial) nested dict — unknown
         keys raise, missing keys take the dataclass defaults.  A JAX
         package spec dict is accepted: ``backend`` is dropped in favour
-        of ``device``, ``metrics.crossval=False`` passes, and
-        ``metrics.crossval=True`` raises :class:`SpecError`."""
+        of ``device``."""
         sections = dict(topology=TopologySpec, traffic=TrafficSpec,
                         dynamics=DynamicsSpec, window=WindowSpec,
                         shard=ShardSpec, live=LiveSpec,
@@ -417,11 +413,6 @@ class RunSpec:
                         f"{key} must be an object of "
                         f"{sect_cls.__name__} fields, got {value!r} — "
                         f"e.g. {{\"{key}\": {{\"kind\": ...}}}}")
-                value = dict(value)
-                if key == "metrics" and "crossval" in value:
-                    if value.pop("crossval"):
-                        raise _later("metrics.crossval=True",
-                                     "the exact-engine slice")
                 sect_fields = {f.name for f in dataclasses.fields(sect_cls)}
                 bad = set(value) - sect_fields
                 if bad:

@@ -1,8 +1,6 @@
 """repro_torch.obs — the port's telemetry: its own copy of the JAX
 package's ``repro.obs`` (DESIGN.md §2.10-§2.11), minus the benchmark
-report writer (``report.py``, which comes with the port's benchmarks)
-and the protocol graph metrics (``graphs.py``, which need the exact
-engine).
+report writer (``report.py``, which comes with the port's benchmarks).
 
 * **Latency histograms** (``hist.py``): the 32-bucket log contract and
   the nearest-rank percentile read-out; on the card the per-column
@@ -13,6 +11,8 @@ engine).
   Perfetto-loadable Chrome trace JSON, behind ``SINKS``.
 * **Flight recorder** (``flight.py``), **causality auditor**
   (``audit.py``) and **live ops plane** (``ops.py``).
+* **Protocol graph metrics** (``graphs.py``): safe-graph path lengths,
+  unsafe links and overhead over the exact engine's ``Network``.
 
 The file formats are the reference's, schema names included, so a file
 either package writes loads in the other.
@@ -22,6 +22,8 @@ from .audit import (AUDIT_MODES, AuditMode, CausalAuditor,
                     CausalityViolationError, Violation)
 from .flight import (SAMPLERS, FlightRecord, FlightRecorder,
                      FlightSampler, provenance_trace_events)
+from .graphs import (full_graph, mean_shortest_path, overhead_per_message,
+                     safe_graph, unsafe_link_stats)
 from .hist import (NB, bucket_index_np, bucket_index_torch,
                    bucket_lower_bounds, hist_np, merge_hists,
                    percentiles_from_hist)
@@ -44,4 +46,6 @@ __all__ = [
     "CausalityViolationError", "Violation",
     "OPS_SCHEMA", "OPS_SCHEMA_VERSION", "OPS_SINKS", "OpsSink",
     "OpsPlane", "SloBurn", "WatchDashboard", "load_ops_jsonl",
+    "safe_graph", "full_graph", "mean_shortest_path",
+    "unsafe_link_stats", "overhead_per_message",
 ]

@@ -3,7 +3,8 @@ package's ``repro.api.run`` with the numpy backend, both with telemetry
 at its defaults: engine selection, stats, delivered fraction, latency,
 extras (the latency percentiles of windowed runs included) and the
 oracle; ``RunSpec.from_dict`` on the reference's spec dicts, the
-``shard`` section accepted and what is not ported yet refused; engine
+``shard`` section accepted, and the exact engine, the vector-clock
+protocol and the cross-validation accepted and run; engine
 auto-selection with ranks; the sharded engine through the front door
 (one rank in process, two spawned gloo ranks) against the reference's
 windowed engine; and the command line."""
@@ -104,14 +105,19 @@ def test_from_dict_accepts_reference_dicts():
 
 
 def test_unported_defaults_track_the_reference():
-    from repro_torch.api.spec import _LATER_VALUES
-    assert set(_LATER_VALUES) == {("protocol", "vc"), ("engine", "exact")}
-    # the ported shard, live and obs sections keep the reference's
-    # defaults
+    """Every section the reference has, the port has, at the reference's
+    defaults — the metrics section's ``crossval`` included, now that the
+    exact engine is ported and nothing of a spec is refused as
+    unported."""
+    import repro_torch.api.spec as tspec
+    assert not hasattr(tspec, "_LATER_VALUES")
     for port_cls, cls in ((tapi.ShardSpec, japi.ShardSpec),
                           (tapi.LiveSpec, japi.LiveSpec),
-                          (tapi.ObsSpec, japi.ObsSpec)):
+                          (tapi.ObsSpec, japi.ObsSpec),
+                          (tapi.MetricsSpec, japi.MetricsSpec)):
         assert dataclasses.asdict(port_cls()) == dataclasses.asdict(cls())
+    assert set(tapi.PROTOCOLS.keys()) == set(japi.PROTOCOLS.keys())
+    assert set(tapi.ENGINES.keys()) == set(japi.ENGINES.keys())
 
 
 @pytest.mark.parametrize("ref_kw", [
@@ -131,17 +137,27 @@ def test_from_dict_accepts_shard_section(ref_kw):
     assert tapi.RunSpec.from_dict(spec.to_dict()) == spec
 
 
-@pytest.mark.parametrize("ref_kw,match", [
-    (dict(mode="live", metrics=japi.MetricsSpec(crossval=True)),
-     "exact-engine slice"),
-    (dict(metrics=japi.MetricsSpec(crossval=True)), "exact-engine slice"),
-    (dict(protocol="vc"), "vector-clock"),
-    (dict(engine="exact"), "exact-engine slice"),
+@pytest.mark.parametrize("ref_kw", [
+    dict(mode="live", metrics=japi.MetricsSpec(crossval=True),
+         live=japi.LiveSpec(rate=2.0, messages=24)),
+    dict(metrics=japi.MetricsSpec(crossval=True)),
+    dict(protocol="vc"),
+    dict(engine="exact"),
 ])
-def test_from_dict_refuses_unported_sections(ref_kw, match):
-    d = japi.RunSpec(**ref_kw).to_dict()
-    with pytest.raises(tapi.SpecError, match=match):
-        tapi.RunSpec.from_dict(d).validate()
+def test_from_dict_refuses_unported_sections(ref_kw):
+    """The sections the port once refused as unported (the exact-engine
+    cross-validation, the vector-clock protocol, the exact engine) now
+    round-trip through ``from_dict``, validate and run."""
+    d = japi.RunSpec(n=32, **ref_kw).to_dict()
+    spec = tapi.RunSpec.from_dict(d)
+    assert tapi.RunSpec.from_dict(spec.to_dict()) == spec
+    spec = dataclasses.replace(spec, device="cpu").validate()
+    rep = tapi.run(spec)
+    assert rep.delivered_frac == 1.0
+    if spec.metrics.crossval:
+        assert rep.crossval_ok is True
+    assert rep.engine == ("exact" if spec.engine == "exact" else
+                          "windowed" if spec.mode == "live" else "vec")
 
 
 def test_validation_errors():

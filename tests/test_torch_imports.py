@@ -1,12 +1,17 @@
 """Import guard of the port: ``src/repro_torch`` and ``chip_smoke.py``
 import neither JAX nor anything of the JAX package ``repro`` — checked
-statically over every module (the telemetry package ``repro_torch.obs``,
-the live serving package ``core/vecsim/live``, the sharded engine
-``core/vecsim/shard`` and the LM substrate's ``configs``, ``models``,
-``kernels``, ``serving`` and ``launch`` included), and by importing the
-port and running a small windowed CPU run, a small live CPU run with
-telemetry, a small sharded CPU run and a smoke-size LM serving run in a
-child interpreter where both are blocked."""
+statically over every module (the telemetry package ``repro_torch.obs``
+with its graph metrics ``obs/graphs.py``, the exact event engine
+``core/{base,types,events,rbroadcast,pcbroadcast,bounded,vector_clock,
+overlay}.py``, the vector-clock engine ``core/vecsim/vc.py``, the
+cross-validation ``core/vecsim/crossval.py``, the live serving package
+``core/vecsim/live``, the sharded engine ``core/vecsim/shard`` and the
+LM substrate's ``configs``, ``models``, ``kernels``, ``serving`` and
+``launch`` included), and by importing the port and running a small
+windowed CPU run, a small live CPU run with telemetry, a small sharded
+CPU run, a small CPU run cross-validated against the exact engine, a
+small vector-clock run and a smoke-size LM serving run in a child
+interpreter where both are blocked."""
 
 import ast
 import os
@@ -72,6 +77,17 @@ for scan in ("on", "off"):
     sh = execute_sharded(scn, 16, device="cpu", seg_len=4, collect="full",
                          scan=scan)
     assert (sh.delivered == res.delivered).all() and sh.stats == res.stats
+from repro_torch.api import DynamicsSpec, MetricsSpec
+rep = run(RunSpec(device="cpu", n=48, dynamics=DynamicsSpec(kind="churn"),
+                  metrics=MetricsSpec(crossval=True, oracle=True)))
+assert rep.crossval_ok is True and rep.oracle.ok
+rep = run(RunSpec(device="cpu", n=48, protocol="vc",
+                  metrics=MetricsSpec(crossval=True)))
+assert rep.engine == "vec" and rep.crossval_ok is True
+assert rep.extras["comparisons_per_delivery"] >= 1.0
+import repro_torch.core
+import repro_torch.core.vecsim.crossval
+import repro_torch.core.vecsim.vc
 import numpy as np
 import repro_torch.launch.serve
 from repro_torch.configs import get_arch
