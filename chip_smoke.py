@@ -142,10 +142,31 @@ non-zero:
      the card and on the CPU, byte-equal in every field; overhead
      bytes a message, comparisons a delivery, space entries, card and
      CPU walls, and the vc drain's iterations and card ms; then a vc
-     cross-validation at N=256 on the card with equal clocks.
+     cross-validation at N=256 on the card with equal clocks;
+ 19. train_parity — the yi-6b and recurrentgemma-9b smoke configs at
+     float32, 3 train steps on the card and on the CPU, each step from
+     one state: loss within 2e-5 and every gradient leaf within 1e-4 of
+     its largest entry, 4 rglru_scan launches forward and 4 backward a
+     hybrid step; mamba2 training on the card refuses
+     (NotImplementedError, no SSD backward kernel);
+ 20. rglru_backward — rglru_scan's backward (a second, reversed launch of
+     the scan kernel) on phase 21's inputs at B=1, S=2,048, W=4,096,
+     against autograd through the plain version, timed and bounded; it
+     goes on the rglru_scan entry of the kernels line;
+ 21. train_recurrentgemma — recurrentgemma-9b at its published width,
+     depth cut to 9 layers (three superblocks of rec, rec, attn), 4
+     AdamW steps on 1 x 2,048 tokens: loss, grad_norm, step ms,
+     tokens/s and peak memory a step, every value finite, 6 rglru_scan
+     and 6 rglru_scan_bwd launches a step;
+ 22. gossip — causal-gossip training on the card: 4 pods of the tiny
+     yi-6b config for 10 rounds with a join at round 3 and a crash at
+     round 6, and 3 pods of the recurrentgemma-9b smoke config (vocab
+     64) for 6 rounds: a clean
+     causal report, apply logs equal to the CPU run's, a falling mean
+     loss.
 
 Then the kernels line (all eleven kernels; launches summed over every
-main-path phase, 17 and 18 included), the card's name and power
+main-path phase, 17 to 22 included), the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Needs
 one CUDA card; exits non-zero without one.
 
@@ -291,6 +312,12 @@ def main(argv=None) -> int:
         extra[key] = extra.get(key, 0) + v
     for e in entries:
         e["launches"] += extra.get(e["name"], 0)
+    # -- 19-22. training and causal-gossip training -------------------- #
+    extra, backward = train_phases(torch, np)
+    for e in entries:
+        e["launches"] += extra.get(e["name"], 0)
+        if e["name"] == "rglru_scan":
+            e["backward"] = backward
 
     # not measured here: the card ms of the earlier designs of five
     # kernels, copied from PERF.md's kernel table, for the eye beside
@@ -2958,6 +2985,428 @@ def table1_phase(torch, np):
          clocks_equal=True, multisets_equal=True,
          seconds=time.perf_counter() - t0)
     return launches
+
+
+# --------------------------------------------------------------------- #
+# Phases 19-22: training and causal-gossip training
+# --------------------------------------------------------------------- #
+TRAIN_PARITY_ARCHS = ("yi-6b", "recurrentgemma-9b")
+TRAIN_PARITY_STEPS = 3
+# card against CPU at f32 (full-precision matmuls): the loss relative,
+# each gradient leaf within this fraction of its largest entry (sums in
+# other orders, the scan's look-back reassociating the recurrence)
+TRAIN_LOSS_RTOL = 2e-5
+TRAIN_GRAD_TOL = 1e-4
+# the full-width run: recurrentgemma-9b at its published width, its depth
+# cut to three superblocks of (rec, rec, attn)
+TRAIN_LAYERS = 9
+TRAIN_SEQ = 2048
+TRAIN_BATCH = 1
+TRAIN_STEPS = 4
+GOSSIP_TINY = dict(num_layers=2, d_model=32, d_ff=64, num_heads=2,
+                   num_kv_heads=2, head_dim=16, vocab_size=64,
+                   compute_dtype="float32", param_dtype="float32")
+GOSSIP_ROUNDS = 10
+GOSSIP_JOIN, GOSSIP_CRASH = 3, 6
+GOSSIP_RG_PODS, GOSSIP_RG_ROUNDS = 3, 6
+
+
+def _grad_close(torch, got, want, tol):
+    """Largest |difference| of each gradient leaf over its largest entry;
+    (worst fraction, every leaf within ``tol`` and finite)."""
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k].float().cpu()
+        scale = float(w.abs().max())
+        frac = float((g - w).abs().max()) / max(scale, 1e-30)
+        if not bool(torch.isfinite(g).all()) or frac > tol:
+            return frac, False
+        worst = max(worst, frac)
+    return worst, True
+
+
+def train_parity_phase(torch, np):
+    """Phase 19: the yi-6b and recurrentgemma-9b smoke configs at f32, on
+    the card and on the CPU from the same weights, 3 train steps; before
+    each step the card takes the CPU's parameters and optimizer state, so
+    every step starts from one state.  Loss and every gradient leaf held
+    card against CPU; the card steps count 4 rglru_scan launches forward
+    and 4 backward for the hybrid's 4 recurrent layers.  Then mamba2
+    training on the card must refuse (no SSD backward kernel)."""
+    import copy
+    from dataclasses import replace
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import Model
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.step import make_grad_fn, make_train_step
+
+    total = {}
+    for arch in TRAIN_PARITY_ARCHS:
+        t0 = time.perf_counter()
+        cfg = replace(get_arch(arch).smoke(), compute_dtype="float32",
+                      param_dtype="float32")
+        models = {"cpu": Model(cfg, device="cpu", seed=0)}
+        models[CARD] = copy.deepcopy(models["cpu"]).to(CARD)
+        params = {d: dict(m.named_parameters()) for d, m in models.items()}
+        opt = {d: init_opt_state(params[d]) for d in models}
+        steps = {d: make_train_step(m, AdamWConfig(lr=1e-3))
+                 for d, m in models.items()}
+        grads = {d: make_grad_fn(m) for d, m in models.items()}
+        data = SyntheticLM(DataConfig(cfg.vocab_size, 64, 4, seed=1))
+        rec = cfg.layer_kinds().count("rec")
+        rows = []
+        for step in range(TRAIN_PARITY_STEPS):
+            batch = data.batch(step)
+            with torch.no_grad():
+                for k, p in params[CARD].items():
+                    p.copy_(params["cpu"][k])
+            opt[CARD] = type(opt["cpu"])(*(
+                None if x is None else
+                {k: v.to(CARD) for k, v in x.items()} if isinstance(x, dict)
+                else x.to(CARD) for x in opt["cpu"]))
+            out = {}
+            torch.cuda.synchronize()
+            reset_launches()
+            for d in models:
+                (loss, _), g = grads[d](params[d], batch)
+                out[d] = (float(loss), {k: v.detach().float().cpu()
+                                        for k, v in g.items()})
+            torch.cuda.synchronize()
+            grad_launches = dict(LAUNCHES)
+            assert grad_launches["rglru_scan"] == rec, grad_launches
+            assert grad_launches["rglru_scan_bwd"] == rec, grad_launches
+            loss_err = abs(out[CARD][0] - out["cpu"][0]) / abs(out["cpu"][0])
+            frac, ok = _grad_close(torch, out[CARD][1], out["cpu"][1],
+                                   TRAIN_GRAD_TOL)
+            if loss_err > TRAIN_LOSS_RTOL or not ok:
+                raise AssertionError(
+                    f"train_parity {arch} step {step}: loss {out[CARD][0]} "
+                    f"card vs {out['cpu'][0]} cpu, worst gradient leaf "
+                    f"{frac} of its largest")
+            reset_launches()
+            metrics = {}
+            for d in models:
+                params[d], opt[d], m = steps[d](params[d], opt[d], batch)
+                metrics[d] = {k: float(v) for k, v in m.items()}
+            torch.cuda.synchronize()
+            for k, v in LAUNCHES.items():
+                total[k] = total.get(k, 0) + v + grad_launches[k]
+            assert LAUNCHES["rglru_scan"] == LAUNCHES["rglru_scan_bwd"] == rec
+            for key in ("loss", "grad_norm", "clip_scale"):
+                a, b = metrics[CARD][key], metrics["cpu"][key]
+                assert abs(a - b) <= 1e-4 * abs(b), (arch, step, key, a, b)
+            rows.append(dict(step=step, loss_card=out[CARD][0],
+                             loss_cpu=out["cpu"][0], loss_rel_err=loss_err,
+                             grad_worst_leaf_frac=frac,
+                             grad_norm_card=metrics[CARD]["grad_norm"],
+                             grad_norm_cpu=metrics["cpu"]["grad_norm"],
+                             launches=grad_launches))
+        emit("train_parity", arch=arch, steps=rows, rec_layers=rec,
+             loss_rtol=TRAIN_LOSS_RTOL, grad_tol_of_leaf_max=TRAIN_GRAD_TOL,
+             seconds=time.perf_counter() - t0)
+    cfg = replace(get_arch("mamba2-2.7b").smoke(), compute_dtype="float32",
+                  param_dtype="float32")
+    model = Model(cfg, seed=0)
+    try:
+        make_grad_fn(model)(dict(model.named_parameters()),
+                            SyntheticLM(DataConfig(cfg.vocab_size, 32,
+                                                   2)).batch(0))
+    except NotImplementedError as exc:
+        assert "item 16" in str(exc), exc
+        emit("train_parity_ssm_refuses", arch="mamba2-2.7b",
+             error=str(exc))
+    else:
+        raise AssertionError("mamba2 training on the card did not refuse")
+    return total
+
+
+def train_recurrentgemma_phase(torch, np, captured):
+    """Phase 21: recurrentgemma-9b at its published width (d_model 4,096,
+    lru_width 4,096, 16 heads x 256 with 1 KV head, d_ff 12,288, vocab
+    256,000 tied, window 2,048, f32 parameters, bf16 compute), 9 layers
+    (three superblocks of rec, rec, attn), trained 4 steps on batch 1 x
+    2,048 tokens of SyntheticLM with AdamW at lr 3e-4, remat none,
+    through ``make_train_step``.  Per step: loss, grad_norm, step ms
+    (host clock, synchronized), the optimizer's share, tokens/s, peak
+    memory.  Gates: every value finite, 6 rglru_scan launches and 6
+    rglru_scan_bwd launches a step.  Keeps the inputs of the first
+    backward call (a, h, dh of the last recurrent layer) for phase 20.
+    Returns the run's launches."""
+    import gc
+    from dataclasses import replace
+
+    import repro_torch.kernels.rglru_scan.ops as rglru_ops
+    import repro_torch.training.step as step_mod
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, prefetch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import Model
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.step import make_train_step
+
+    cfg = replace(get_arch("recurrentgemma-9b"), num_layers=TRAIN_LAYERS)
+    rec = cfg.layer_kinds().count("rec")
+    assert rec == 6 and cfg.layer_kinds().count("attn") == 3
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, seed=0)
+    params = dict(model.named_parameters())
+    opt = init_opt_state(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.values())
+    step_fn = make_train_step(model, AdamWConfig())
+    data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                  seed=0))
+
+    inner_update = step_mod.adamw_update
+    inner_bwd = rglru_ops.rglru_scan_backward
+    opt_ms = []
+
+    def timed_update(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner_update(*a, **kw)
+        torch.cuda.synchronize()
+        opt_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def keep_bwd(a, h, h0, dh):
+        if not captured:
+            captured.update(a=a.detach().clone(), h=h.detach().clone(),
+                            h0=None if h0 is None else h0.clone(),
+                            dh=dh.detach().clone())
+        return inner_bwd(a, h, h0, dh)
+
+    rows, launches = [], {}
+    step_mod.adamw_update = timed_update
+    rglru_ops.rglru_scan_backward = keep_bwd
+    try:
+        for i, batch in enumerate(prefetch(data.iterate(0))):
+            if i == TRAIN_STEPS:
+                break
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t = time.perf_counter()
+            params, opt, m = step_fn(params, opt, batch)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            per = {k: v for k, v in LAUNCHES.items() if v}
+            for k, v in per.items():
+                launches[k] = launches.get(k, 0) + v
+            rows.append(dict(step=i, loss=loss, grad_norm=gnorm,
+                             clip_scale=float(m["clip_scale"]), step_ms=ms,
+                             optimizer_ms=opt_ms[-1],
+                             forward_backward_ms=ms - opt_ms[-1],
+                             tokens_per_sec=TRAIN_SEQ * TRAIN_BATCH
+                             / (ms / 1e3),
+                             peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                             launches=per))
+            emit("train_recurrentgemma_step", **rows[-1])
+    finally:
+        step_mod.adamw_update, rglru_ops.rglru_scan_backward = (
+            inner_update, inner_bwd)
+    assert len(rows) == TRAIN_STEPS
+    for r in rows:
+        assert np.isfinite([r["loss"], r["grad_norm"]]).all(), r
+        assert r["launches"].get("rglru_scan") == rec, r["launches"]
+        assert r["launches"].get("rglru_scan_bwd") == rec, r["launches"]
+    finite = all(bool(torch.isfinite(p).all()) for p in params.values())
+    assert finite, "a parameter is not finite after training"
+    emit("train_recurrentgemma", arch=cfg.name, layers=cfg.num_layers,
+         layer_kinds={k: cfg.layer_kinds().count(k)
+                      for k in set(cfg.layer_kinds())},
+         d_model=cfg.d_model, lru_width=cfg.lru_width, d_ff=cfg.d_ff,
+         vocab_size=cfg.vocab_size, heads=cfg.num_heads,
+         kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+         window=cfg.window, param_dtype=cfg.param_dtype,
+         compute_dtype=cfg.compute_dtype, parameters=n_params,
+         batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, steps=TRAIN_STEPS,
+         lr=AdamWConfig().lr, remat="none", init_seconds=init_s,
+         step_ms=[r["step_ms"] for r in rows],
+         median_step_ms=statistics.median(r["step_ms"] for r in rows[1:]),
+         tokens_per_sec_after_first=TRAIN_SEQ * TRAIN_BATCH * (
+             TRAIN_STEPS - 1) / (sum(r["step_ms"] for r in rows[1:]) / 1e3),
+         losses=[r["loss"] for r in rows],
+         peak_memory_bytes=max(r["peak_memory_bytes"] for r in rows),
+         launches=launches, launches_per_step={"rglru_scan": rec,
+                                               "rglru_scan_bwd": rec})
+    del model, params, opt, step_fn, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def rglru_backward_phase(torch, np, inp):
+    """Phase 20: the backward launch at the full-width shape, on the
+    inputs phase 21's first backward call gave it (a, h, dh of B=1,
+    S=2,048, W=4,096): (da, dbx) held against autograd through the plain
+    version (f32 2e-5); the bare reversed launch (c, e -> r, f32) timed
+    and bounded (3 x 32 MiB over 3.35 TB/s), beside the whole backward
+    (flips and the da product included) and the plain scan of the same
+    (c, e)."""
+    from repro_torch.kernels.rglru_scan.ops import (launch_rglru_scan,
+                                                    rglru_scan_backward)
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+
+    a, h, h0, dh = inp["a"], inp["h"], inp["h0"], inp["dh"]
+    assert h0 is None
+    b, s, w = a.shape
+    assert (b, s) == (TRAIN_BATCH, TRAIN_SEQ), a.shape
+    da, dbx, _ = rglru_scan_backward(a, h, h0, dh)
+    # the plain reference: autograd through the step-by-step recurrence,
+    # on the forward's own inputs (bx recovered from h)
+    bx = (h - a.float() * torch.cat([torch.zeros_like(h[:, :1]),
+                                     h[:, :-1]], 1)).to(a.dtype)
+    ar = a.detach().clone().requires_grad_()
+    bxr = bx.detach().clone().requires_grad_()
+    href, _ = rglru_scan_ref(ar, bxr)
+    want = torch.autograd.grad(href, [ar, bxr], dh)
+    err, ok = _lm_close(torch, (da.to(a.dtype), dbx.to(a.dtype)),
+                        tuple(want), LM_TOL[str(a.dtype).split(".")[1]])
+    if not ok:
+        raise AssertionError(f"rglru_scan's backward differs from autograd "
+                             f"through the plain version: {err}")
+    c = torch.empty((b, s, w), dtype=torch.float32, device=a.device)
+    c[:, 0] = 0.0
+    c[:, 1:] = a[:, 1:].flip(1)
+    e = dh.flip(1).float().contiguous()
+    r = torch.empty_like(e)
+    launch = lambda: launch_rglru_scan(c, e, None, r)
+    ms = _time_fn(torch, launch, 20)
+    wrapper_ms = _time_fn(torch, lambda: rglru_scan_backward(a, h, h0, dh),
+                          20, queued=False)
+    plain_ms = _time_fn(torch, lambda: rglru_scan_ref(c, e), 5, queued=False)
+    ms2 = _time_fn(torch, launch, 20)
+    nbytes = 3 * 4 * b * s * w
+    flops = 2 * b * s * w
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    entry = dict(shape=[b, s, w], dtype="float32", max_abs_err=err,
+                 tolerance=LM_TOL[str(a.dtype).split(".")[1]],
+                 ms=min(ms, ms2), ms_repeats=[ms, ms2],
+                 wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                 bound_ms=max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 bytes=nbytes, flops=flops, library_ms=None,
+                 launches_per_step=6,
+                 note="the reversed scan: c = (0, a[S-1..1]), e = flip(dh) "
+                      "-> r, f32, one launch of rglru_scan.cu")
+    emit("rglru_backward", **entry)
+    return entry
+
+
+def _gossip_run(torch, arch_cfg, device, n_pods, rounds, churn, weights):
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import build_model
+    from repro_torch.runtime.gossip import CausalGossipTrainer, GossipConfig
+
+    tr = CausalGossipTrainer(
+        lambda: build_model(arch_cfg, device=device, seed=0), n_pods,
+        GossipConfig(local_steps=2), DataConfig(arch_cfg.vocab_size, 32, 8),
+        seed=0, init_state=weights)
+    losses = []
+    t0 = time.perf_counter()
+    for r in range(rounds):
+        tr.run_rounds(1, churn=None if churn is None
+                      else (lambda _, t, r=r: churn(r, t)))
+        losses.append(tr.mean_loss())
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return tr, losses, time.perf_counter() - t0
+
+
+def gossip_phase(torch, np):
+    """Phase 22: causal-gossip training on the card — 4 pods of
+    tests/test_gossip.py's tiny yi-6b config for 10 rounds, a pod joining
+    at round 3 and one crashing silently at round 6, and 3 pods of the
+    recurrentgemma-9b smoke config (with the tiny config's vocabulary of
+    64, which the pods learn within a few rounds) for 6 rounds; each also
+    on the CPU
+    with the same seed, the pods of both starting from one set of
+    weights.  Gates: a clean causal report, every pod's apply
+    log equal to the CPU run's, the mean loss falling (last round below
+    the first).  Returns the LM kernels' launches."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import Model
+
+    def churn(r, t):
+        if r == GOSSIP_JOIN:
+            t.join()
+        if r == GOSSIP_CRASH:
+            t.leave(next(p.pid for p in t.pods.values() if p.alive),
+                    graceful=False)
+
+    cases = [("yi-6b-tiny", replace(get_arch("yi-6b").smoke(),
+                                    **GOSSIP_TINY), 4, GOSSIP_ROUNDS, churn),
+             ("recurrentgemma-9b-smoke", replace(
+                 get_arch("recurrentgemma-9b").smoke(), vocab_size=64,
+                 compute_dtype="float32", param_dtype="float32"),
+              GOSSIP_RG_PODS, GOSSIP_RG_ROUNDS, None)]
+    total = {}
+    for name, cfg, n_pods, rounds, ch in cases:
+        weights = {k: v.detach() for k, v in Model(
+            cfg, device="cpu", seed=0).named_parameters()}
+        torch.cuda.synchronize()
+        reset_launches()
+        card, card_losses, card_s = _gossip_run(torch, cfg, CARD, n_pods,
+                                                rounds, ch, weights)
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        cpu, cpu_losses, cpu_s = _gossip_run(torch, cfg, "cpu", n_pods,
+                                             rounds, ch, weights)
+        rep = card.causal_report()
+        assert card.device.type == CARD
+        assert rep.causal_ok and not rep.double_deliveries, rep.summary()
+        assert rep.summary() == cpu.causal_report().summary(), name
+        assert sorted(card.pods) == sorted(cpu.pods), name
+        for pid, pod in card.pods.items():
+            assert pod.applied == cpu.pods[pid].applied, (name, pid)
+        assert card.store.bytes_stored == cpu.store.bytes_stored, name
+        assert card_losses[-1] < card_losses[0], (name, card_losses)
+        assert np.isfinite(card_losses).all(), card_losses
+        if cfg.layer_kinds().count("rec"):
+            assert launches.get("rglru_scan") and launches.get(
+                "rglru_scan_bwd"), launches
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        emit("gossip", config=name, pods=n_pods, rounds=rounds,
+             churn=None if ch is None else {"join_round": GOSSIP_JOIN,
+                                            "crash_round": GOSSIP_CRASH},
+             alive=sorted(p.pid for p in card.pods.values() if p.alive),
+             causal=rep.summary(), apply_logs_equal_cpu=True,
+             applied=sum(len(p.applied) for p in card.pods.values()),
+             bytes_stored=card.store.bytes_stored,
+             mean_loss_card=card_losses, mean_loss_cpu=cpu_losses,
+             replica_drift=card.replica_drift(), card_seconds=card_s,
+             cpu_seconds=cpu_s, launches=launches)
+    return total
+
+
+def train_phases(torch, np):
+    """Phases 19-22; returns (the LM kernels' launches on the training
+    paths, the kernels-line record of rglru_scan's backward launch)."""
+    launches = train_parity_phase(torch, np)
+    captured = {}
+    for k, v in train_recurrentgemma_phase(torch, np, captured).items():
+        launches[k] = launches.get(k, 0) + v
+    backward = rglru_backward_phase(torch, np, captured)
+    captured.clear()
+    torch.cuda.empty_cache()
+    for k, v in gossip_phase(torch, np).items():
+        launches[k] = launches.get(k, 0) + v
+    backward["launches"] = launches.get("rglru_scan_bwd", 0)
+    return launches, backward
 
 
 if __name__ == "__main__":

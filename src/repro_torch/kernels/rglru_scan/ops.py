@@ -4,7 +4,19 @@ h[:, -1])``.  The kernel needs no padding: it masks the ragged chunk
 and column tile itself.  Its chunked scan passes carries between blocks
 through a scratch of flags, aggregates and prefixes, which this module
 allocates and zeroes once per device and stream and reuses: each launch
-carries a new epoch in its flags, so no launch needs a fill."""
+carries a new epoch in its flags, so no launch needs a fill.
+
+The scan is differentiable, and its backward is a second launch of the
+same kernel.  The JAX package has no backward kernel (its training
+differentiates the jnp reference); but the gradient of a linear
+recurrence is the same recurrence run backwards in time.  With G_t =
+dL/dh_t in total, G_{S-1} = dh_{S-1} and G_t = dh_t + a_{t+1} G_{t+1},
+so flip(G) = scan(c, e) with c = (0, a_{S-1}, ..., a_1) and e = flip(dh)
+(the gradient of h[:, -1] reaches dh through autograd); then dbx = G,
+da = G h_prev (h_prev = (h0 or 0, h_0, ..., h_{S-2})) and dh0 = a_0 G_0.
+The reversed launch runs in float32 on the card (counted under
+``rglru_scan_bwd``) and through the plain version on the CPU, so both
+take one formula."""
 
 from __future__ import annotations
 
@@ -15,7 +27,7 @@ import torch
 from .. import common
 from .ref import rglru_scan_ref
 
-__all__ = ["rglru_scan", "launch_rglru_scan"]
+__all__ = ["rglru_scan", "rglru_scan_backward", "launch_rglru_scan"]
 
 # (device index, stream) -> [int32 scratch, epoch of its last launch]
 _SCRATCH: Dict[Tuple[int, int], list] = {}
@@ -53,12 +65,62 @@ def launch_rglru_scan(a, bx, h0, h):
         common.DTYPE_CODE[a.dtype], epoch, stream))
 
 
+def _scan(a, bx, h0, key: str):
+    """h of the recurrence: the kernel, counted under ``key``, on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    if not common.route(a.device):
+        return rglru_scan_ref(a, bx, h0)[0]
+    h = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    if h.numel():
+        launch_rglru_scan(a, bx, h0, h)
+        common.LAUNCHES[key] += 1
+    return h
+
+
+def rglru_scan_backward(a, h, h0, dh):
+    """(da, dbx, dh0) of the scan that gave ``h`` (B, S, W) f32 from
+    ``a`` and ``h0`` (None or (B, W)), for the gradient ``dh`` of h:
+    the reversed recurrence, one launch of the kernel on the card.
+    Returned in float32; dh0 is None without h0."""
+    b, s, w = a.shape
+    c = torch.empty((b, s, w), dtype=torch.float32, device=a.device)
+    c[:, 0] = 0.0
+    c[:, 1:] = a[:, 1:].flip(1)
+    e = dh.flip(1).float().contiguous()
+    g = _scan(c, e, None, "rglru_scan_bwd").flip(1)
+    h_prev = torch.empty_like(h)
+    h_prev[:, 1:] = h[:, :-1]
+    if h0 is None:
+        h_prev[:, 0] = 0.0
+    else:
+        h_prev[:, 0] = h0
+    dh0 = None if h0 is None else a[:, 0].float() * g[:, 0]
+    return g * h_prev, g, dh0
+
+
+class _RGLRUScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, bx, h0):
+        h = _scan(a, bx, h0, "rglru_scan")
+        ctx.save_for_backward(a, h, h0)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h, h0 = ctx.saved_tensors
+        da, dbx, dh0 = rglru_scan_backward(a, h, h0, dh)
+        return (da.to(a.dtype) if ctx.needs_input_grad[0] else None,
+                dbx.to(a.dtype) if ctx.needs_input_grad[1] else None,
+                dh0 if ctx.needs_input_grad[2] else None)
+
+
 def rglru_scan(a: torch.Tensor, bx: torch.Tensor,
                h0: Optional[torch.Tensor] = None):
     """h_t = a_t h_{t-1} + bx_t.  a, bx (B, S, W), float32 or bfloat16,
     one type; h0 optional (B, W), float32.  Returns (h (B, S, W) float32,
     h_last (B, W)).  The kernel on a CUDA tensor, the plain version on a
-    CPU tensor."""
+    CPU tensor; differentiable in a, bx and h0 (the backward is the
+    reversed scan, :func:`rglru_scan_backward`)."""
     if a.dim() != 3:
         raise ValueError(f"a must be (B, S, W), got {tuple(a.shape)}")
     dev = a.device
@@ -67,10 +129,5 @@ def rglru_scan(a: torch.Tensor, bx: torch.Tensor,
     b, s, w = a.shape
     if h0 is not None:
         common.check("h0", h0, (b, w), dev, torch.float32)
-    if not common.route(dev):
-        return rglru_scan_ref(a, bx, h0)
-    h = torch.empty((b, s, w), dtype=torch.float32, device=dev)
-    if h.numel():
-        launch_rglru_scan(a, bx, h0, h)
-        common.LAUNCHES["rglru_scan"] += 1
+    h = _RGLRUScan.apply(a, bx, h0)
     return h, h[:, -1]

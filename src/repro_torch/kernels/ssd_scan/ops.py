@@ -7,7 +7,15 @@ H), Bm and Cm (B, S, N) — so no transposed copy is made: a block finds
 its head's rows (and its slice of P) by stride, and B and C by batch
 row (shared by the heads, n_groups = 1).  bf16 chunks of at most 128
 steps and states of at most 128 rows run on the tensor cores, the rest
-on the CUDA cores (:func:`ssd_scan_body`)."""
+on the CUDA cores (:func:`ssd_scan_body`).
+
+The kernel has no backward yet: on a CUDA tensor that needs a gradient
+the wrapper raises rather than hand back an output that autograd cannot
+see past.  The SSD backward does not reduce to this forward kernel (dB
+and dC contract dy with x per head, which its shared (B, S, N) Bm and Cm
+cannot express), so it is a kernel of its own (ROADMAP.md, queue 1,
+item 16).  On the CPU the plain version is ordinary differentiable
+torch code and trains."""
 
 from __future__ import annotations
 
@@ -47,7 +55,8 @@ def ssd_chunk_scan(xbar, a_log, Bm, Cm, chunk: int = 128):
     """xbar (B,S,H,P) float32 or bfloat16; a_log (B,S,H) float32; Bm, Cm
     (B,S,N) of xbar's type -> (y (B,S,H,P) of xbar's type, h_final
     (B,H,N,P) float32).  The kernel on CUDA tensors, the plain version on
-    CPU tensors."""
+    CPU tensors; on CUDA tensors that need a gradient it raises
+    ``NotImplementedError`` (no backward kernel yet)."""
     if xbar.dim() != 4:
         raise ValueError(f"xbar must be (B, S, H, P), got "
                          f"{tuple(xbar.shape)}")
@@ -60,6 +69,13 @@ def ssd_chunk_scan(xbar, a_log, Bm, Cm, chunk: int = 128):
     common.check("Cm", Cm, (b, s, n), dev, xbar.dtype)
     if not common.route(dev):
         return ssd_chunk_scan_ref(xbar, a_log, Bm, Cm, chunk=chunk)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xbar, a_log, Bm, Cm)):
+        raise NotImplementedError(
+            "ssd_chunk_scan has no backward kernel on the card yet "
+            "(ROADMAP.md, queue 1, item 16: the SSD backward kernel); "
+            "train the SSM family on the CPU, or call this under "
+            "torch.no_grad()")
     q = chunk_len(s, chunk)
     if s % q:
         pad = q - s % q

@@ -6,7 +6,11 @@ axis, ``params["stack{i}"]["b{j}"][...]`` of shape ``(n_rep, ...)``, in
 ``stacks.{i}.{r}.b{j}....``.  :func:`load_jax_params` unstacks each leaf
 along that axis and copies it in.  It takes plain numpy (a nested dict,
 ``jax.tree.map(np.asarray, params)``), so this module needs no JAX; only
-the tests call it with JAX's weights.
+the tests call it with JAX's weights.  :func:`stack_superblocks` and
+:func:`unstack_superblocks` move a dict of tensors keyed by the port's
+names to JAX's leaves (``stack{i}.b{j}....`` with the repeat axis in
+front) and back, for code that must see JAX's leaves (top-k selection
+per leaf).
 """
 
 from __future__ import annotations
@@ -18,7 +22,8 @@ import torch
 
 from .transformer import Model
 
-__all__ = ["load_jax_params", "from_jax_params", "port_state"]
+__all__ = ["load_jax_params", "from_jax_params", "port_state",
+           "stack_superblocks", "unstack_superblocks"]
 
 
 def _flatten(node, prefix: Tuple[str, ...] = ()):
@@ -71,3 +76,35 @@ def load_jax_params(model: Model, params) -> Model:
 def from_jax_params(cfg, params, device=None) -> Model:
     """A ``Model`` of ``cfg`` on ``device`` holding the JAX weights."""
     return load_jax_params(Model(cfg, device=device), params)
+
+
+def stack_superblocks(tree: Dict[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+    """``stacks.{i}.{r}.{rest}`` leaves stacked over r into
+    ``stack{i}.{rest}`` (JAX's leaves); other leaves as they are."""
+    out: Dict[str, torch.Tensor] = {}
+    groups: Dict[str, Dict[int, torch.Tensor]] = {}
+    for name, t in tree.items():
+        parts = name.split(".")
+        if parts[0] == "stacks":
+            key = ".".join([f"stack{parts[1]}"] + parts[3:])
+            groups.setdefault(key, {})[int(parts[2])] = t
+        else:
+            out[name] = t
+    for key, reps in groups.items():
+        out[key] = torch.stack([reps[r] for r in range(len(reps))])
+    return out
+
+
+def unstack_superblocks(tree: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`stack_superblocks` (views of its leaves)."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, t in tree.items():
+        head, _, rest = name.partition(".")
+        if head.startswith("stack") and head[5:].isdigit():
+            for r in range(t.shape[0]):
+                out[f"stacks.{head[5:]}.{r}.{rest}"] = t[r]
+        else:
+            out[name] = t
+    return out

@@ -25,7 +25,9 @@ __all__ = ["SSM", "ssd_forward", "ssm_decode_step", "init_ssm_state"]
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+    """A trainable parameter (the serving entry points run under
+    ``torch.no_grad``)."""
+    return nn.Parameter(t)
 
 
 class SSM(nn.Module):

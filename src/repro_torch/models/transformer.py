@@ -9,7 +9,7 @@ partial tail stack (``stack_layout``).  Each stack is an
 ``lax.scan`` over the repeat axis is a Python loop here.
 
 Three entry points share the layer code:
-  * ``forward``      — full-sequence logits;
+  * ``forward``      — full-sequence logits (training);
   * ``prefill``      — the prompt's last logits and the serving caches;
   * ``decode_step``  — one token against the caches.
 
@@ -23,18 +23,27 @@ of ``repro_torch.kernels``: the hand-written kernel for CUDA tensors,
 the plain version for CPU tensors.  There is no ``use_pallas`` switch:
 the JAX package needs one to keep its TPU kernels out of CPU runs,
 where the wrappers here choose by device already, and a switch could
-only keep the kernel off the card's path.  MoE, encoder-decoder and
-M-RoPE archs, and the training knobs (``remat``, ``unroll``,
-``seq_shard``), are not ported yet.
+only keep the kernel off the card's path.
+
+Training differentiates ``forward``.  ``remat`` recomputes each
+superblock's activations in the backward, as the JAX package's
+``jax.checkpoint`` over the scan body does: ``"full"`` keeps nothing
+(``nothing_saveable``), ``"dots"`` keeps the matrix products' outputs
+(``dots_saveable``, through selective checkpointing).  MoE,
+encoder-decoder and M-RoPE archs, and the knobs ``unroll`` and
+``seq_shard``, are not ported yet (the port's superblock loop is a
+Python loop already).
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.utils.checkpoint as ckpt
 
 from ..backend import resolve_device
 from .layers import attention, decode_attention, init_dense, mlp, rms_norm
@@ -42,10 +51,12 @@ from .rglru import RGLRU, rglru_decode_step, rglru_forward
 from .ssm import SSM, _param, ssd_forward, ssm_decode_step
 
 __all__ = ["Model", "build_model", "StackSpec", "stack_layout",
-           "cache_seq_len"]
+           "cache_seq_len", "REMATS"]
 
 _LATER = ("waits for a later slice of the port (ROADMAP.md, queue 1, "
           "item 13)")
+#: the ``remat`` modes of ``Model``
+REMATS = ("none", "dots", "full")
 
 
 # ------------------------------------------------------------------ #
@@ -173,6 +184,32 @@ def _grow(t: torch.Tensor, target: int) -> torch.Tensor:
     return torch.cat([t, pad], dim=1)
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """``dots_saveable``: keep the outputs of matrix products, recompute
+    everything else."""
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.bmm.default, aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _run_block(block, cfg, x, positions):
+    for layer in block.values():
+        x, _ = apply_layer(layer, cfg, x, positions, "train")
+    return x
+
+
+def _remat_block(remat: str, block, cfg, x, positions):
+    """One superblock of the training forward, its activations
+    recomputed in the backward (``remat`` "full" or "dots")."""
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    return ckpt.checkpoint(_run_block, block, cfg, x, positions,
+                           use_reentrant=False, **kw)
+
+
 # ------------------------------------------------------------------ #
 # full model
 # ------------------------------------------------------------------ #
@@ -184,13 +221,17 @@ class Model(nn.Module):
     type (default ``cfg.param_dtype``); the weights come from
     ``generator`` (a ``torch.Generator`` on ``device``) or from one seeded
     with ``seed``.  They cannot equal the JAX package's ``Model.init``
-    draws; ``repro_torch.models.convert`` loads those.  The parameters do
-    not require grad: the port serves and does not train yet.
-    Activations run in ``cfg.compute_dtype``."""
+    draws; ``repro_torch.models.convert`` loads those.  The parameters
+    require grad (``repro_torch.training`` trains them); ``remat`` is one
+    of :data:`REMATS`.  Activations run in ``cfg.compute_dtype``."""
 
     def __init__(self, cfg, device=None, dtype=None,
-                 generator: Optional[torch.Generator] = None, seed: int = 0):
+                 generator: Optional[torch.Generator] = None, seed: int = 0,
+                 remat: str = "none"):
         super().__init__()
+        if remat not in REMATS:
+            raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
+        self.remat = remat
         for flag, what in ((cfg.is_moe, "MoE"),
                            (cfg.is_encdec, "the encoder-decoder"),
                            (cfg.mrope, "M-RoPE")):
@@ -235,6 +276,15 @@ class Model(nn.Module):
     def _run(self, x, positions, mode: str, caches=None, cur_index=None):
         """Every layer in order; returns (x, caches) with the caches of
         the prefill or decode mode (None in "train")."""
+        if mode == "train":
+            for stack in self.stacks:
+                for block in stack:
+                    if self.remat != "none" and torch.is_grad_enabled():
+                        x = _remat_block(self.remat, block, self.cfg, x,
+                                         positions)
+                    else:
+                        x = _run_block(block, self.cfg, x, positions)
+            return x, None
         out = []
         for s, stack in enumerate(self.stacks):
             stack_out = []
@@ -247,7 +297,7 @@ class Model(nn.Module):
                     new_c[name] = c
                 stack_out.append(new_c)
             out.append(stack_out)
-        return x, (out if mode != "train" else None)
+        return x, out
 
     def _positions(self, x):
         b, s, _ = x.shape
@@ -294,5 +344,6 @@ class Model(nn.Module):
         return self._logits(x)[:, 0], caches
 
 
-def build_model(cfg, device=None, dtype=None, seed: int = 0) -> Model:
-    return Model(cfg, device=device, dtype=dtype, seed=seed)
+def build_model(cfg, device=None, dtype=None, seed: int = 0,
+                remat: str = "none") -> Model:
+    return Model(cfg, device=device, dtype=dtype, seed=seed, remat=remat)

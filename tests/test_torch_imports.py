@@ -7,11 +7,13 @@ overlay}.py``, the vector-clock engine ``core/vecsim/vc.py``, the
 cross-validation ``core/vecsim/crossval.py``, the live serving package
 ``core/vecsim/live``, the sharded engine ``core/vecsim/shard`` and the
 LM substrate's ``configs``, ``models``, ``kernels``, ``serving`` and
-``launch`` included), and by importing the port and running a small
-windowed CPU run, a small live CPU run with telemetry, a small sharded
-CPU run, a small CPU run cross-validated against the exact engine, a
-small vector-clock run and a smoke-size LM serving run in a child
-interpreter where both are blocked."""
+``launch``, and its training path's ``training``, ``data``,
+``checkpoint`` and ``runtime`` included), and by importing the port and
+running a small windowed CPU run, a small live CPU run with telemetry, a
+small sharded CPU run, a small CPU run cross-validated against the exact
+engine, a small vector-clock run, a smoke-size LM serving run, two
+launcher train steps with a checkpoint, and a causal-gossip round in a
+child interpreter where both are blocked."""
 
 import ast
 import os
@@ -30,7 +32,8 @@ def _port_files():
     for package in ("obs", "core/vecsim/live", "core/vecsim/kernels",
                     "core/vecsim/shard", "api", "configs", "models",
                     "kernels", "kernels/rglru_scan", "kernels/ssd_scan",
-                    "kernels/flash_attention", "serving", "launch"):
+                    "kernels/flash_attention", "serving", "launch",
+                    "training", "data", "checkpoint", "runtime"):
         assert any(f.parent == port / package for f in files), package
     return files + [REPO / "chip_smoke.py"]
 
@@ -100,6 +103,25 @@ for arch in ("mamba2-2.7b", "recurrentgemma-9b"):
         eng.submit(Request(rid=i, prompt=np.arange(3 + i, dtype=np.int32),
                            max_new_tokens=4))
     assert len(eng.run()) == 3
+import tempfile
+from dataclasses import replace
+import repro_torch.launch.train as train_launcher
+with tempfile.TemporaryDirectory() as d:
+    loss = train_launcher.main(["--device", "cpu", "--steps", "2",
+                                "--seq-len", "8", "--batch", "2",
+                                "--ckpt-dir", d])
+    assert np.isfinite(loss)
+from repro_torch.data.pipeline import DataConfig
+from repro_torch.runtime.gossip import CausalGossipTrainer, GossipConfig
+cfg = replace(get_arch("recurrentgemma-9b").smoke(), compute_dtype="float32",
+              param_dtype="float32")
+tr = CausalGossipTrainer(lambda: build_model(cfg, device="cpu"), 3,
+                         GossipConfig(local_steps=1, compress_frac=0.1),
+                         DataConfig(cfg.vocab_size, 8, 2))
+tr.run_rounds(1)
+rep = tr.causal_report()
+assert rep.causal_ok and rep.n_broadcasts == 3, rep.summary()
+assert all(len(p.applied) == 2 for p in tr.pods.values())
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro")
                 and sys.modules[m] is not None)

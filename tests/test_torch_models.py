@@ -82,7 +82,7 @@ def test_convert_maps_every_leaf(name):
     own = dict(tm.named_parameters())
     assert sorted(state) == sorted(own)
     for key, arr in state.items():
-        np.testing.assert_array_equal(own[key].numpy(), arr)
+        np.testing.assert_array_equal(own[key].detach().numpy(), arr)
     n_port = sum(p.numel() for p in own.values())
     n_jax = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(params))
     assert n_port == n_jax
