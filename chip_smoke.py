@@ -143,12 +143,21 @@ non-zero:
      bytes a message, comparisons a delivery, space entries, card and
      CPU walls, and the vc drain's iterations and card ms; then a vc
      cross-validation at N=256 on the card with equal clocks;
- 19. train_parity — the yi-6b and recurrentgemma-9b smoke configs at
-     float32, 3 train steps on the card and on the CPU, each step from
-     one state: loss within 2e-5 and every gradient leaf within 1e-4 of
-     its largest entry, 4 rglru_scan launches forward and 4 backward a
-     hybrid step; mamba2 training on the card refuses
-     (NotImplementedError, no SSD backward kernel);
+ 19. train_parity — the yi-6b, recurrentgemma-9b and mamba2-2.7b smoke
+     configs at float32, 3 train steps on the card and on the CPU, each
+     step from one state: loss within 2e-5 and every gradient leaf
+     within 1e-4 of its largest entry, 4 rglru_scan launches forward and
+     4 backward a hybrid step, 4 ssd_scan launches a Mamba-2 step (its
+     backward recomputes the plain version on the card);
+ 19b. train_mamba2 — mamba2-2.7b at its published width, depth cut to
+     16 of 64 layers, 4 AdamW steps on 1 x 2,048 tokens: step ms,
+     tokens/s, peak memory, 16 ssd_scan launches a step; then, on the
+     run's first scan inputs, the wrapper against its plain version
+     (bf16 2e-2) and timed, and the wrapper's backward (``_SSDScan``:
+     the plain version recomputed and differentiated on the card)
+     against autograd through the plain version, timed; they go on the
+     kernels line's ssd_scan entry as ``training_shape`` and
+     ``backward``;
  20. rglru_backward — rglru_scan's backward (a second, reversed launch of
      the scan kernel) on phase 21's inputs at B=1, S=2,048, W=4,096,
      against autograd through the plain version, timed and bounded; it
@@ -163,7 +172,29 @@ non-zero:
      round 6, and 3 pods of the recurrentgemma-9b smoke config (vocab
      64) for 6 rounds: a clean
      causal report, apply logs equal to the CPU run's, a falling mean
-     loss.
+     loss;
+ 23. families_parity — the smoke() configs of qwen3-moe-235b-a22b,
+     grok-1-314b, whisper-small and qwen2-vl-72b at float32 on the card
+     and on the CPU: forward logits (within 1e-4 of their largest),
+     prefill + decode (2e-4) and 3 train steps from one state (as phase
+     19); the MoE at its default capacity factors (1.25 training, with
+     drops; 2.0 serving) with every call's routing — top-k experts, sort
+     order, ranks, kept set — equal card against CPU; qwen2-vl on an
+     image block's distinct (t, h, w) positions, whisper with
+     enc_embeds;
+ 24. lm_serve_qwen3_moe — qwen3-moe-235b-a22b at its published width
+     (128 experts top-8), depth cut to 4 of 94 layers (44.8 GB of f32
+     weights), through ServingEngine: 8 greedy requests of 16 tokens on
+     256-512-token prompts; tokens/s, prefill and decode ms, peak
+     memory, the share of assignments dropped in the prefills;
+ 25. lm_serve_qwen2_vl — qwen2-vl-72b at its published width, depth cut
+     to 8 of 80 layers (38 GB): one prefill of 256 patch embeddings on a
+     (1, 16, 16) grid then 64 text tokens, with 3-D positions, and 16
+     decode steps; then ServingEngine on 4 token prompts;
+ 26. whisper — whisper-small at full size (12 + 12 layers, 1,500 frames
+     of enc_embeds): a prefill of 4 requests and 16 decode steps, then 4
+     AdamW steps at batch 8 x 448 tokens; phases 23-26 check that no LM
+     kernel ran (none sits on these families' paths).
 
 Then the kernels line (all eleven kernels; launches summed over every
 main-path phase, 17 to 22 included), the card's name and power
@@ -313,11 +344,13 @@ def main(argv=None) -> int:
     for e in entries:
         e["launches"] += extra.get(e["name"], 0)
     # -- 19-22. training and causal-gossip training -------------------- #
-    extra, backward = train_phases(torch, np)
+    extra, fields = train_phases(torch, np)
     for e in entries:
         e["launches"] += extra.get(e["name"], 0)
-        if e["name"] == "rglru_scan":
-            e["backward"] = backward
+        e.update(fields.get(e["name"], {}))
+    # -- 23-26. the MoE, encoder-decoder and M-RoPE families ----------- #
+    # (no LM kernel on their paths; each phase checks that none ran)
+    family_phases(torch, np)
 
     # not measured here: the card ms of the earlier designs of five
     # kernels, copied from PERF.md's kernel table, for the eye beside
@@ -2452,6 +2485,81 @@ def _lm_prompts(np, cfg, lo, hi, n=8, seed=0):
             for m in lens]
 
 
+def _timed_serve(torch, model, prompts, max_len, slots=4, new=16):
+    """``prompts`` through ``ServingEngine`` (``slots`` slots, caches of
+    ``max_len``, ``new`` greedy tokens each), every prefill and decode
+    step timed on the host clock between syncs.  Gates: every request
+    done with ``new`` tokens, every logit finite.  Returns (requests,
+    engine, {"prefill_ms", "prefill_launches" (the LM kernels' launches
+    in each prefill), "decode_ms"}, the run's wall, its launches)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serving import Request, ServeConfig, ServingEngine
+
+    stats = dict(prefill_ms=[], prefill_launches=[], decode_ms=[])
+    finite = []
+    orig_prefill, orig_decode = model.prefill, model.decode_step
+
+    def prefill(tokens, pad_to=None):
+        torch.cuda.synchronize()
+        before = dict(LAUNCHES)
+        t = time.perf_counter()
+        last, caches = orig_prefill(tokens, pad_to=pad_to)
+        torch.cuda.synchronize()
+        stats["prefill_ms"].append((time.perf_counter() - t) * 1e3)
+        stats["prefill_launches"].append(
+            {k: v - before[k] for k, v in LAUNCHES.items()})
+        finite.append(torch.isfinite(last).all())
+        return last, caches
+
+    def decode_step(token, caches, cur_index):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, caches = orig_decode(token, caches, cur_index)
+        torch.cuda.synchronize()
+        stats["decode_ms"].append((time.perf_counter() - t) * 1e3)
+        finite.append(torch.isfinite(logits).all())
+        return logits, caches
+
+    eng = ServingEngine(model, ServeConfig(batch=slots, max_len=max_len))
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=new)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    model.prefill, model.decode_step = prefill, decode_step
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+    finally:
+        del model.prefill, model.decode_step
+    assert all(r.done and len(r.out_tokens) == new for r in reqs), [
+        (r.rid, r.done, len(r.out_tokens)) for r in reqs]
+    assert bool(torch.stack(finite).all()), "a logit is not finite"
+    return reqs, eng, stats, wall, launches
+
+
+def _serve_fields(torch, prompts, reqs, eng, stats, wall):
+    """The serving metrics of a :func:`_timed_serve` run, for its line."""
+    tokens = sum(len(r.out_tokens) for r in reqs)
+    return dict(
+        requests=len(reqs), prompt_lens=[len(p) for p in prompts],
+        new_tokens=len(reqs[0].out_tokens), ticks=eng.ticks,
+        engine_wall_seconds=wall, tokens_per_sec=tokens / wall,
+        decode_tokens_per_sec=(tokens - len(reqs))
+        / (sum(stats["decode_ms"]) / 1e3),
+        prefill_ms=stats["prefill_ms"],
+        prefill_tokens_per_sec=sum(len(p) for p in prompts)
+        / (sum(stats["prefill_ms"]) / 1e3),
+        decode_ms_per_tick=statistics.median(stats["decode_ms"]),
+        decode_ms_per_tick_mean=statistics.fmean(stats["decode_ms"]),
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        first_tokens=[r.out_tokens[:4] for r in reqs[:2]])
+
+
 def lm_serve_phase(torch, np, arch, capture_attention=False):
     """Phases 14 and 15: ``arch`` at full width and depth, random weights
     from a seeded generator on the card, bf16 compute, through
@@ -2469,9 +2577,7 @@ def lm_serve_phase(torch, np, arch, capture_attention=False):
     import repro_torch.models.rglru as rglru_mod
     import repro_torch.models.ssm as ssm_mod
     from repro_torch.configs import get_arch
-    from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models import Model
-    from repro_torch.serving import Request, ServeConfig, ServingEngine
 
     cfg = get_arch(arch)
     kernel, per_prefill, lo, hi = LM_SERVE[arch]
@@ -2497,31 +2603,6 @@ def lm_serve_phase(torch, np, arch, capture_attention=False):
     param_bytes = sum(p.numel() * p.element_size()
                       for p in model.parameters())
 
-    stats = dict(prefill_ms=[], prefill_launches=[], decode_ms=[])
-    finite = []
-    orig_prefill, orig_decode = model.prefill, model.decode_step
-
-    def prefill(tokens, pad_to=None):
-        torch.cuda.synchronize()
-        before = LAUNCHES[kernel]
-        t = time.perf_counter()
-        last, caches = orig_prefill(tokens, pad_to=pad_to)
-        torch.cuda.synchronize()
-        stats["prefill_ms"].append((time.perf_counter() - t) * 1e3)
-        stats["prefill_launches"].append(LAUNCHES[kernel] - before)
-        finite.append(torch.isfinite(last).all())
-        return last, caches
-
-    def decode_step(token, caches, cur_index):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        logits, caches = orig_decode(token, caches, cur_index)
-        torch.cuda.synchronize()
-        stats["decode_ms"].append((time.perf_counter() - t) * 1e3)
-        finite.append(torch.isfinite(logits).all())
-        return logits, caches
-
-    model.prefill, model.decode_step = prefill, decode_step
     # keep the inputs of the kernel wrapper's first call in the run
     mod, attr = ((rglru_mod, "rglru_scan") if kernel == "rglru_scan"
                  else (ssm_mod, "ssd_chunk_scan"))
@@ -2539,55 +2620,29 @@ def lm_serve_phase(torch, np, arch, capture_attention=False):
                 captured.setdefault("h0", None)
         return wrapper(*args, **kw)
 
-    eng = ServingEngine(model, ServeConfig(batch=4, max_len=4096))
-    reqs = [Request(rid=i, prompt=p, max_new_tokens=16)
-            for i, p in enumerate(prompts)]
-    for r in reqs:
-        eng.submit(r)
     setattr(mod, attr, keep)
     try:
-        torch.cuda.synchronize()
-        reset_launches()
-        t0 = time.perf_counter()
-        eng.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(LAUNCHES)
+        reqs, eng, stats, wall, launches = _timed_serve(torch, model,
+                                                        prompts, 4096)
     finally:
         setattr(mod, attr, wrapper)
-    assert all(r.done and len(r.out_tokens) == 16 for r in reqs), [
-        (r.rid, r.done, len(r.out_tokens)) for r in reqs]
-    assert bool(torch.stack(finite).all()), "a logit is not finite"
-    assert stats["prefill_launches"] == [per_prefill] * len(reqs), stats[
-        "prefill_launches"]
+    per = [c[kernel] for c in stats["prefill_launches"]]
+    assert per == [per_prefill] * len(reqs), per
     assert launches[kernel] == per_prefill * len(reqs), launches
-    peak = torch.cuda.max_memory_allocated()
-    tokens = sum(len(r.out_tokens) for r in reqs)
-    decode_tokens = tokens - len(reqs)
+    stats["prefill_launches"] = per
     emit(f"lm_serve_{arch.split('-')[0]}", arch=arch,
          layers=cfg.num_layers, layer_kinds={
              k: cfg.layer_kinds().count(k) for k in set(cfg.layer_kinds())},
          d_model=cfg.d_model, parameters=n_params,
          config_param_count=cfg.param_count(), param_bytes=param_bytes,
          param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
-         init_seconds=init_s, slots=4, max_len=4096, requests=len(reqs),
-         prompt_lens=[len(p) for p in prompts], new_tokens=16,
-         ticks=eng.ticks, engine_wall_seconds=wall,
-         tokens_per_sec=tokens / wall,
-         decode_tokens_per_sec=decode_tokens / (sum(stats["decode_ms"])
-                                                / 1e3),
-         prefill_ms=stats["prefill_ms"],
-         prefill_tokens_per_sec=sum(len(p) for p in prompts)
-         / (sum(stats["prefill_ms"]) / 1e3),
-         decode_ms_per_tick=statistics.median(stats["decode_ms"]),
-         decode_ms_per_tick_mean=statistics.fmean(stats["decode_ms"]),
-         peak_memory_bytes=peak, launches=launches,
-         launches_per_prefill=stats["prefill_launches"],
-         first_tokens=[r.out_tokens[:4] for r in reqs[:2]])
+         init_seconds=init_s, slots=4, max_len=4096,
+         **_serve_fields(torch, prompts, reqs, eng, stats, wall),
+         launches=launches, launches_per_prefill=stats["prefill_launches"])
     attn = None
     if capture_attention:
         attn = _capture_attention(torch, np, model, layers_mod)
-    del model, eng, reqs, orig_prefill, orig_decode
+    del model, eng, reqs
     gc.collect()
     torch.cuda.empty_cache()
     return launches, captured, attn
@@ -2990,7 +3045,7 @@ def table1_phase(torch, np):
 # --------------------------------------------------------------------- #
 # Phases 19-22: training and causal-gossip training
 # --------------------------------------------------------------------- #
-TRAIN_PARITY_ARCHS = ("yi-6b", "recurrentgemma-9b")
+TRAIN_PARITY_ARCHS = ("yi-6b", "recurrentgemma-9b", "mamba2-2.7b")
 TRAIN_PARITY_STEPS = 3
 # card against CPU at f32 (full-precision matmuls): the loss relative,
 # each gradient leaf within this fraction of its largest entry (sums in
@@ -3003,6 +3058,8 @@ TRAIN_LAYERS = 9
 TRAIN_SEQ = 2048
 TRAIN_BATCH = 1
 TRAIN_STEPS = 4
+# the full-width Mamba-2 run: mamba2-2.7b's depth cut to 16 of 64 layers
+TRAIN_SSM_LAYERS = 16
 GOSSIP_TINY = dict(num_layers=2, d_model=32, d_ff=64, num_heads=2,
                    num_kv_heads=2, head_dim=16, vocab_size=64,
                    compute_dtype="float32", param_dtype="float32")
@@ -3025,102 +3082,270 @@ def _grad_close(torch, got, want, tol):
     return worst, True
 
 
-def train_parity_phase(torch, np):
-    """Phase 19: the yi-6b and recurrentgemma-9b smoke configs at f32, on
-    the card and on the CPU from the same weights, 3 train steps; before
-    each step the card takes the CPU's parameters and optimizer state, so
-    every step starts from one state.  Loss and every gradient leaf held
-    card against CPU; the card steps count 4 rglru_scan launches forward
-    and 4 backward for the hybrid's 4 recurrent layers.  Then mamba2
-    training on the card must refuse (no SSD backward kernel)."""
-    import copy
-    from dataclasses import replace
+def _lm_launches(cfg):
+    """The LM kernels' launches of one forward (or one backward) of
+    ``cfg``: a scan a recurrent layer, a scan a Mamba-2 layer."""
+    kinds = cfg.layer_kinds()
+    return {"rglru_scan": kinds.count("rec"), "ssd_scan": kinds.count("ssm"),
+            "flash_attention": 0}
 
-    from repro_torch.configs import get_arch
+
+def _train_parity(torch, np, cfg, extra=None, routing=None):
+    """``cfg`` (a smoke config at f32) on the card and on the CPU from
+    the same weights, TRAIN_PARITY_STEPS train steps of SyntheticLM
+    batches (4 x 64, plus the arrays of ``extra``, e.g. positions or
+    enc_embeds); before each step the card takes the CPU's parameters
+    and optimizer state, so every step starts from one state.  Loss and
+    every gradient leaf held card against CPU, then the steps' loss,
+    grad_norm and clip_scale; each gradient evaluation and each step
+    launches the LM kernels :func:`_lm_launches` times forward and the
+    RG-LRU scan's reversed launch as often backward.  ``routing``, if
+    given, is called around each gradient evaluation (a context
+    manager).  Returns (per-step rows, the card's launches)."""
+    import contextlib
+    import copy
+
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models import Model
     from repro_torch.training.optimizer import AdamWConfig, init_opt_state
     from repro_torch.training.step import make_grad_fn, make_train_step
 
+    models = {"cpu": Model(cfg, device="cpu", seed=0)}
+    models[CARD] = copy.deepcopy(models["cpu"]).to(CARD)
+    params = {d: dict(m.named_parameters()) for d, m in models.items()}
+    opt = {d: init_opt_state(params[d]) for d in models}
+    steps = {d: make_train_step(m, AdamWConfig(lr=1e-3))
+             for d, m in models.items()}
+    grads = {d: make_grad_fn(m) for d, m in models.items()}
+    data = SyntheticLM(DataConfig(cfg.vocab_size, 64, 4, seed=1))
+    want = dict(_lm_launches(cfg))
+    want["rglru_scan_bwd"] = want["rglru_scan"]
+    rows, total = [], {}
+    for step in range(TRAIN_PARITY_STEPS):
+        batch = dict(data.batch(step), **(extra or {}))
+        with torch.no_grad():
+            for k, p in params[CARD].items():
+                p.copy_(params["cpu"][k])
+        opt[CARD] = type(opt["cpu"])(*(
+            None if x is None else
+            {k: v.to(CARD) for k, v in x.items()} if isinstance(x, dict)
+            else x.to(CARD) for x in opt["cpu"]))
+        out = {}
+        torch.cuda.synchronize()
+        reset_launches()
+        for d in models:
+            with (routing(d) if routing else contextlib.nullcontext()):
+                (loss, _), g = grads[d](params[d], batch)
+            out[d] = (float(loss), {k: v.detach().float().cpu()
+                                    for k, v in g.items()})
+        torch.cuda.synchronize()
+        grad_launches = dict(LAUNCHES)
+        assert grad_launches == want, (grad_launches, want)
+        loss_err = abs(out[CARD][0] - out["cpu"][0]) / abs(out["cpu"][0])
+        frac, ok = _grad_close(torch, out[CARD][1], out["cpu"][1],
+                               TRAIN_GRAD_TOL)
+        if loss_err > TRAIN_LOSS_RTOL or not ok:
+            raise AssertionError(
+                f"train_parity {cfg.name} step {step}: loss {out[CARD][0]} "
+                f"card vs {out['cpu'][0]} cpu, worst gradient leaf "
+                f"{frac} of its largest")
+        reset_launches()
+        metrics = {}
+        for d in models:
+            params[d], opt[d], m = steps[d](params[d], opt[d], batch)
+            metrics[d] = {k: float(v) for k, v in m.items()}
+        torch.cuda.synchronize()
+        assert dict(LAUNCHES) == want, (dict(LAUNCHES), want)
+        for k, v in LAUNCHES.items():
+            total[k] = total.get(k, 0) + v + grad_launches[k]
+        for key in ("loss", "grad_norm", "clip_scale"):
+            a, b = metrics[CARD][key], metrics["cpu"][key]
+            assert abs(a - b) <= 1e-4 * abs(b), (cfg.name, step, key, a, b)
+        rows.append(dict(step=step, loss_card=out[CARD][0],
+                         loss_cpu=out["cpu"][0], loss_rel_err=loss_err,
+                         grad_worst_leaf_frac=frac,
+                         aux_card=metrics[CARD]["aux"],
+                         aux_cpu=metrics["cpu"]["aux"],
+                         grad_norm_card=metrics[CARD]["grad_norm"],
+                         grad_norm_cpu=metrics["cpu"]["grad_norm"],
+                         launches=grad_launches))
+    return rows, total
+
+
+def train_parity_phase(torch, np):
+    """Phase 19: the yi-6b, recurrentgemma-9b and mamba2-2.7b smoke
+    configs at f32, 3 train steps card against CPU from one state
+    (:func:`_train_parity`): 4 rglru_scan launches forward and 4
+    backward a hybrid step, 4 ssd_scan launches a Mamba-2 step (its
+    backward recomputes the plain version on the card)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_arch
+
     total = {}
     for arch in TRAIN_PARITY_ARCHS:
         t0 = time.perf_counter()
         cfg = replace(get_arch(arch).smoke(), compute_dtype="float32",
                       param_dtype="float32")
-        models = {"cpu": Model(cfg, device="cpu", seed=0)}
-        models[CARD] = copy.deepcopy(models["cpu"]).to(CARD)
-        params = {d: dict(m.named_parameters()) for d, m in models.items()}
-        opt = {d: init_opt_state(params[d]) for d in models}
-        steps = {d: make_train_step(m, AdamWConfig(lr=1e-3))
-                 for d, m in models.items()}
-        grads = {d: make_grad_fn(m) for d, m in models.items()}
-        data = SyntheticLM(DataConfig(cfg.vocab_size, 64, 4, seed=1))
-        rec = cfg.layer_kinds().count("rec")
-        rows = []
-        for step in range(TRAIN_PARITY_STEPS):
-            batch = data.batch(step)
-            with torch.no_grad():
-                for k, p in params[CARD].items():
-                    p.copy_(params["cpu"][k])
-            opt[CARD] = type(opt["cpu"])(*(
-                None if x is None else
-                {k: v.to(CARD) for k, v in x.items()} if isinstance(x, dict)
-                else x.to(CARD) for x in opt["cpu"]))
-            out = {}
-            torch.cuda.synchronize()
-            reset_launches()
-            for d in models:
-                (loss, _), g = grads[d](params[d], batch)
-                out[d] = (float(loss), {k: v.detach().float().cpu()
-                                        for k, v in g.items()})
-            torch.cuda.synchronize()
-            grad_launches = dict(LAUNCHES)
-            assert grad_launches["rglru_scan"] == rec, grad_launches
-            assert grad_launches["rglru_scan_bwd"] == rec, grad_launches
-            loss_err = abs(out[CARD][0] - out["cpu"][0]) / abs(out["cpu"][0])
-            frac, ok = _grad_close(torch, out[CARD][1], out["cpu"][1],
-                                   TRAIN_GRAD_TOL)
-            if loss_err > TRAIN_LOSS_RTOL or not ok:
-                raise AssertionError(
-                    f"train_parity {arch} step {step}: loss {out[CARD][0]} "
-                    f"card vs {out['cpu'][0]} cpu, worst gradient leaf "
-                    f"{frac} of its largest")
-            reset_launches()
-            metrics = {}
-            for d in models:
-                params[d], opt[d], m = steps[d](params[d], opt[d], batch)
-                metrics[d] = {k: float(v) for k, v in m.items()}
-            torch.cuda.synchronize()
-            for k, v in LAUNCHES.items():
-                total[k] = total.get(k, 0) + v + grad_launches[k]
-            assert LAUNCHES["rglru_scan"] == LAUNCHES["rglru_scan_bwd"] == rec
-            for key in ("loss", "grad_norm", "clip_scale"):
-                a, b = metrics[CARD][key], metrics["cpu"][key]
-                assert abs(a - b) <= 1e-4 * abs(b), (arch, step, key, a, b)
-            rows.append(dict(step=step, loss_card=out[CARD][0],
-                             loss_cpu=out["cpu"][0], loss_rel_err=loss_err,
-                             grad_worst_leaf_frac=frac,
-                             grad_norm_card=metrics[CARD]["grad_norm"],
-                             grad_norm_cpu=metrics["cpu"]["grad_norm"],
-                             launches=grad_launches))
-        emit("train_parity", arch=arch, steps=rows, rec_layers=rec,
+        rows, launches = _train_parity(torch, np, cfg)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        emit("train_parity", arch=arch, steps=rows,
+             launches_per_forward=_lm_launches(cfg),
              loss_rtol=TRAIN_LOSS_RTOL, grad_tol_of_leaf_max=TRAIN_GRAD_TOL,
              seconds=time.perf_counter() - t0)
-    cfg = replace(get_arch("mamba2-2.7b").smoke(), compute_dtype="float32",
-                  param_dtype="float32")
-    model = Model(cfg, seed=0)
-    try:
-        make_grad_fn(model)(dict(model.named_parameters()),
-                            SyntheticLM(DataConfig(cfg.vocab_size, 32,
-                                                   2)).batch(0))
-    except NotImplementedError as exc:
-        assert "item 16" in str(exc), exc
-        emit("train_parity_ssm_refuses", arch="mamba2-2.7b",
-             error=str(exc))
-    else:
-        raise AssertionError("mamba2 training on the card did not refuse")
     return total
+
+
+def _timed_train(torch, np, step_fn, params, opt, batches, tokens):
+    """``step_fn`` over ``batches``, each step timed on the host clock
+    between syncs, with the allocator's peak and the launch counts reset
+    before it.  Gates: loss and grad_norm finite.  Returns (a row a step
+    — loss, grad_norm, clip_scale, step_ms, tokens/s of ``tokens`` a
+    step, peak memory, its launches —, params, opt, the run's launches
+    summed)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    rows, launches = [], {}
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        per = {k: v for k, v in LAUNCHES.items() if v}
+        for k, v in per.items():
+            launches[k] = launches.get(k, 0) + v
+        assert np.isfinite([loss, gnorm]).all(), (i, loss, gnorm)
+        rows.append(dict(step=i, loss=loss, grad_norm=gnorm,
+                         clip_scale=float(m["clip_scale"]), step_ms=ms,
+                         tokens_per_sec=tokens / (ms / 1e3),
+                         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                         launches=per))
+    return rows, params, opt, launches
+
+
+def train_mamba2_phase(torch, np):
+    """Phase 19b: mamba2-2.7b at its published width (d_model 2,560, 80
+    SSD heads x 64, N 128, chunks of 128, vocab 50,280 tied; f32
+    parameters, bf16 compute), its depth cut to 16 of 64 layers, 4 AdamW
+    steps on 1 x 2,048 tokens of SyntheticLM: loss, step ms, tokens/s,
+    peak memory, 16 ssd_scan launches a step.  Then, on the inputs of
+    the run's first ssd_scan call (B=1, S=2,048, H=80, P=64, N=128,
+    bf16, the tensor-core body): the wrapper held against its plain
+    version (bf16 2e-2) and against float64, timed; and the shipped
+    backward — ``ssd_chunk_scan`` through ``_SSDScan`` on inputs that
+    need a gradient, then ``autograd.grad`` — its gradients held against
+    autograd through the plain version (bf16 2e-2), its time the
+    forward-and-backward's less the forward's, bounded by the bytes it
+    must move (the forward's inputs and output gradients read, the input
+    gradients written).  Returns (the run's launches, the training
+    shape's kernels-line entry with the backward's record in it)."""
+    import gc
+    from dataclasses import replace
+
+    import repro_torch.models.ssm as ssm_mod
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.ssd_scan.ops import ssd_chunk_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunk_scan_ref
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.step import make_train_step
+
+    cfg = replace(get_arch("mamba2-2.7b"), num_layers=TRAIN_SSM_LAYERS)
+    model, init_s = _fresh_model(torch, cfg)
+    params = dict(model.named_parameters())
+    opt = init_opt_state(params)
+    step_fn = make_train_step(model, AdamWConfig())
+    data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                  seed=0))
+    wrapper, captured = ssm_mod.ssd_chunk_scan, {}
+
+    def keep(xbar, a_log, Bm, Cm, chunk):
+        if not captured:
+            captured.update(xbar=xbar.detach().clone(),
+                            a_log=a_log.detach().clone(),
+                            Bm=Bm.detach().clone(), Cm=Cm.detach().clone(),
+                            chunk=chunk)
+        return wrapper(xbar, a_log, Bm, Cm, chunk=chunk)
+
+    ssm_mod.ssd_chunk_scan = keep
+    try:
+        rows, params, opt, launches = _timed_train(
+            torch, np, step_fn, params, opt,
+            (data.batch(i) for i in range(TRAIN_STEPS)),
+            TRAIN_SEQ * TRAIN_BATCH)
+    finally:
+        ssm_mod.ssd_chunk_scan = wrapper
+    for r in rows:
+        assert r["launches"] == {"ssd_scan": cfg.num_layers}, r["launches"]
+    assert all(bool(torch.isfinite(p).all()) for p in params.values())
+    emit("train_mamba2", arch=cfg.name, published_layers=get_arch(
+        cfg.name).num_layers, **_sizes(cfg, model), ssm_heads=cfg.ssm_heads,
+         ssm_state=cfg.ssm_state, init_seconds=init_s, batch=TRAIN_BATCH,
+         seq_len=TRAIN_SEQ, lr=AdamWConfig().lr, remat="none",
+         steps=rows, median_step_ms_after_first=statistics.median(
+             r["step_ms"] for r in rows[1:]),
+         peak_memory_bytes=max(r["peak_memory_bytes"] for r in rows),
+         launches=launches)
+    del model, params, opt, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the forward at the training shape, against its plain version
+    inp = captured
+    entry = _lm_entry(torch, np, "ssd_scan", inp,
+                      note="the mamba2 training path's first call")
+    # the shipped backward, on the same inputs
+    x, al, bm, cm, chunk = (inp[k] for k in ("xbar", "a_log", "Bm", "Cm",
+                                              "chunk"))
+    gen = torch.Generator(device=x.device).manual_seed(4)
+    dy = torch.randn(x.shape, generator=gen, device=x.device).to(x.dtype)
+    b, _, h, p = x.shape
+    dh = torch.randn((b, h, bm.shape[-1], p), generator=gen,
+                     device=x.device)
+    args = [t.detach().requires_grad_() for t in (x, al, bm, cm)]
+
+    def forward():
+        y, hfin = ssd_chunk_scan(*args, chunk=chunk)
+        return y, hfin
+
+    def forward_backward():
+        return torch.autograd.grad(forward(), args, (dy, dh))
+
+    y, _ = forward()
+    assert type(y.grad_fn).__name__ == "_SSDScanBackward", y.grad_fn
+    got = forward_backward()
+    want = torch.autograd.grad(ssd_chunk_scan_ref(*args, chunk=chunk),
+                               args, (dy, dh))
+    err, ok = _lm_close(torch, got, want, LM_TOL[entry["dtype"]])
+    if not ok:
+        raise AssertionError(f"ssd_scan's backward differs from autograd "
+                             f"through its plain version: max |err| {err}")
+    del y, got, want
+    torch.cuda.reset_peak_memory_stats()
+    both_ms = _time_fn(torch, forward_backward, 10, queued=False)
+    bwd_peak = torch.cuda.max_memory_allocated()
+    fwd_ms = _time_fn(torch, forward, 10, queued=False)
+    nbytes = 2 * sum(t.numel() * t.element_size() for t in (x, al, bm, cm)) \
+        + dy.numel() * dy.element_size() + dh.numel() * dh.element_size()
+    entry["backward"] = dict(
+        ms=both_ms - fwd_ms, forward_and_backward_ms=both_ms,
+        forward_ms=fwd_ms, max_abs_err=err, tolerance=LM_TOL[entry["dtype"]],
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        bytes=nbytes, peak_memory_bytes=bwd_peak,
+        launches_per_step=cfg.num_layers,
+        note="_SSDScan.backward: ssd_chunk_scan_ref recomputed and "
+             "differentiated on the card (no kernel; ROADMAP item 16 is "
+             "its kernel); ms = forward and backward less the forward")
+    emit("ssd_train_shape", **entry)
+    del args, dy, dh
+    inp.clear()
+    return launches, entry
 
 
 def train_recurrentgemma_phase(torch, np, captured):
@@ -3136,30 +3361,22 @@ def train_recurrentgemma_phase(torch, np, captured):
     backward call (a, h, dh of the last recurrent layer) for phase 20.
     Returns the run's launches."""
     import gc
+    import itertools
     from dataclasses import replace
 
     import repro_torch.kernels.rglru_scan.ops as rglru_ops
     import repro_torch.training.step as step_mod
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import DataConfig, SyntheticLM, prefetch
-    from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.models import Model
     from repro_torch.training.optimizer import AdamWConfig, init_opt_state
     from repro_torch.training.step import make_train_step
 
     cfg = replace(get_arch("recurrentgemma-9b"), num_layers=TRAIN_LAYERS)
     rec = cfg.layer_kinds().count("rec")
     assert rec == 6 and cfg.layer_kinds().count("attn") == 3
-    gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    model = Model(cfg, seed=0)
+    model, init_s = _fresh_model(torch, cfg)
     params = dict(model.named_parameters())
     opt = init_opt_state(params)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in params.values())
     step_fn = make_train_step(model, AdamWConfig())
     data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
@@ -3184,39 +3401,20 @@ def train_recurrentgemma_phase(torch, np, captured):
                             dh=dh.detach().clone())
         return inner_bwd(a, h, h0, dh)
 
-    rows, launches = [], {}
     step_mod.adamw_update = timed_update
     rglru_ops.rglru_scan_backward = keep_bwd
     try:
-        for i, batch in enumerate(prefetch(data.iterate(0))):
-            if i == TRAIN_STEPS:
-                break
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            reset_launches()
-            t = time.perf_counter()
-            params, opt, m = step_fn(params, opt, batch)
-            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t) * 1e3
-            per = {k: v for k, v in LAUNCHES.items() if v}
-            for k, v in per.items():
-                launches[k] = launches.get(k, 0) + v
-            rows.append(dict(step=i, loss=loss, grad_norm=gnorm,
-                             clip_scale=float(m["clip_scale"]), step_ms=ms,
-                             optimizer_ms=opt_ms[-1],
-                             forward_backward_ms=ms - opt_ms[-1],
-                             tokens_per_sec=TRAIN_SEQ * TRAIN_BATCH
-                             / (ms / 1e3),
-                             peak_memory_bytes=torch.cuda.max_memory_allocated(),
-                             launches=per))
-            emit("train_recurrentgemma_step", **rows[-1])
+        rows, params, opt, launches = _timed_train(
+            torch, np, step_fn, params, opt,
+            itertools.islice(prefetch(data.iterate(0)), TRAIN_STEPS),
+            TRAIN_SEQ * TRAIN_BATCH)
     finally:
         step_mod.adamw_update, rglru_ops.rglru_scan_backward = (
             inner_update, inner_bwd)
     assert len(rows) == TRAIN_STEPS
-    for r in rows:
-        assert np.isfinite([r["loss"], r["grad_norm"]]).all(), r
+    for r, o in zip(rows, opt_ms):
+        r.update(optimizer_ms=o, forward_backward_ms=r["step_ms"] - o)
+        emit("train_recurrentgemma_step", **r)
         assert r["launches"].get("rglru_scan") == rec, r["launches"]
         assert r["launches"].get("rglru_scan_bwd") == rec, r["launches"]
     finite = all(bool(torch.isfinite(p).all()) for p in params.values())
@@ -3239,7 +3437,7 @@ def train_recurrentgemma_phase(torch, np, captured):
          peak_memory_bytes=max(r["peak_memory_bytes"] for r in rows),
          launches=launches, launches_per_step={"rglru_scan": rec,
                                                "rglru_scan_bwd": rec})
-    del model, params, opt, step_fn, m
+    del model, params, opt, step_fn
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -3395,8 +3593,12 @@ def gossip_phase(torch, np):
 
 def train_phases(torch, np):
     """Phases 19-22; returns (the LM kernels' launches on the training
-    paths, the kernels-line record of rglru_scan's backward launch)."""
+    paths, by kernel the fields they add to its kernels-line entry: the
+    backwards of rglru_scan (its reversed launch) and ssd_scan (the
+    recompute), and ssd_scan at the training shape)."""
     launches = train_parity_phase(torch, np)
+    mamba, ssd_train = train_mamba2_phase(torch, np)
+    launches["ssd_scan"] += mamba["ssd_scan"]
     captured = {}
     for k, v in train_recurrentgemma_phase(torch, np, captured).items():
         launches[k] = launches.get(k, 0) + v
@@ -3406,7 +3608,395 @@ def train_phases(torch, np):
     for k, v in gossip_phase(torch, np).items():
         launches[k] = launches.get(k, 0) + v
     backward["launches"] = launches.get("rglru_scan_bwd", 0)
-    return launches, backward
+    return launches, {"rglru_scan": dict(backward=backward),
+                      "ssd_scan": dict(backward=ssd_train.pop("backward"),
+                                       training_shape=ssd_train)}
+
+
+# --------------------------------------------------------------------- #
+# Phases 23-26: the MoE, encoder-decoder and M-RoPE families
+# --------------------------------------------------------------------- #
+FAMILY_ARCHS = ("qwen3-moe-235b-a22b", "grok-1-314b", "whisper-small",
+                "qwen2-vl-72b")
+# qwen2-vl's image blocks, (t, h, w): the parity phase's and the serving
+# phase's (a 448 x 448 image: 32 x 32 patches of 14, merged 2 x 2)
+VL_PARITY_GRID, VL_SERVE_GRID = (2, 2, 3), (1, 16, 16)
+VL_SERVE_TEXT = 64
+# the full-width runs' depth cuts (the models' own: 94 and 80 layers)
+MOE_SERVE_LAYERS, VL_SERVE_LAYERS = 4, 8
+MOE_PROMPTS = (256, 512)
+WHISPER_REQUESTS, WHISPER_PROMPT = 4, 32
+WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ, WHISPER_TRAIN_STEPS = 8, 448, 4
+NEW_TOKENS = 16
+
+
+def _vl_positions(np, b, grid, text):
+    """(b, 3, t h w + text) positions: an image block on a (t, h, w) grid
+    (stream i its grid index i), then ``text`` tokens at one past the
+    block's largest index and on, equal in all three streams."""
+    t, h, w = grid
+    ti, hi, wi = np.meshgrid(np.arange(t), np.arange(h), np.arange(w),
+                             indexing="ij")
+    image = np.stack([ti.ravel(), hi.ravel(), wi.ravel()])
+    start = image.max() + 1
+    words = np.broadcast_to(np.arange(start, start + text), (3, text))
+    pos = np.concatenate([image, words], axis=1).astype(np.int32)
+    return np.broadcast_to(pos, (b,) + pos.shape).copy()
+
+
+def _family_extra(np, cfg, b, s, seed):
+    """The inputs beside the tokens: ``enc_embeds`` (b, S_enc, d) for the
+    encoder-decoder, an image block's positions then text for M-RoPE."""
+    rng = np.random.default_rng(seed)
+    extra = {}
+    if cfg.is_encdec:
+        extra["enc_embeds"] = (rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model)) * 0.1).astype(np.float32)
+    if cfg.mrope:
+        extra["positions"] = _vl_positions(
+            np, b, VL_PARITY_GRID, s - int(np.prod(VL_PARITY_GRID)))
+    return extra
+
+
+def _no_lm_kernel(launches):
+    """No TPU kernel sits on these families' paths (MoE dispatch, cross
+    attention and M-RoPE are plain jnp in the JAX package too)."""
+    assert not any(launches.values()), launches
+
+
+def families_parity_phase(torch, np):
+    """Phase 23: the smoke() configs of qwen3-moe-235b-a22b, grok-1-314b,
+    whisper-small and qwen2-vl-72b at f32, on the card and on the CPU
+    from the same weights: forward logits on 2 x 24 tokens (qwen2-vl on
+    an image block of (2, 2, 3) then text, whisper with 24 frames of
+    enc_embeds) within 1e-4 of their largest; a prefill of 16 and 8
+    decode steps within 2e-4; 3 train steps from one state
+    (:func:`_train_parity`).  The MoE routes at its default capacity
+    factors (1.25 training, assignments dropped; 2.0 serving) and every
+    call's top-k experts, sort order, ranks and kept set are equal card
+    against CPU."""
+    import contextlib
+    import copy
+    from dataclasses import replace
+
+    import repro_torch.models.moe as moe_mod
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import Model
+
+    for arch in FAMILY_ARCHS:
+        t0 = time.perf_counter()
+        cfg = replace(get_arch(arch).smoke(), compute_dtype="float32",
+                      param_dtype="float32")
+        b, s, s0 = 2, 24, 16
+        tokens = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (b, s)).astype(np.int32)
+        extra = {k: torch.from_numpy(v)
+                 for k, v in _family_extra(np, cfg, b, s, 1).items()}
+        cpu = Model(cfg, device="cpu", seed=0)
+        models = {"cpu": cpu, CARD: copy.deepcopy(cpu).to(CARD)}
+        routes = {d: [] for d in models}
+        route = moe_mod.route
+
+        @contextlib.contextmanager
+        def routing(dev):
+            def keep(p, c, x, train):
+                r = route(p, c, x, train)
+                routes[dev].append((train, r.cap) + tuple(
+                    t.cpu() for t in (r.idx, r.order, r.rank, r.keep)))
+                return r
+            moe_mod.route = keep
+            try:
+                yield
+            finally:
+                moe_mod.route = route
+
+        torch.cuda.synchronize()
+        reset_launches()
+        logits, served = {}, {}
+        for dev, model in models.items():
+            with routing(dev), torch.no_grad():
+                logits[dev] = model(torch.from_numpy(tokens),
+                                    **extra).cpu()
+            pre = dict(extra)
+            if "positions" in pre:
+                pre["positions"] = pre["positions"][..., :s0]
+            with routing(dev):
+                last, caches = model.prefill(torch.from_numpy(
+                    tokens[:, :s0]), pad_to=s, **pre)
+                served[dev] = [last.cpu()]
+                for t in range(s0, s):
+                    out, caches = model.decode_step(
+                        torch.from_numpy(tokens[:, t]), caches, t)
+                    served[dev].append(out.cpu())
+        torch.cuda.synchronize()
+        _no_lm_kernel(LAUNCHES)
+        frac, ok = _grad_close(torch, {"logits": logits[CARD]},
+                               {"logits": logits["cpu"]}, TRAIN_GRAD_TOL)
+        assert ok, (arch, "forward logits", frac)
+        serve_err = max(float((a - c).abs().max())
+                        for a, c in zip(served[CARD], served["cpu"]))
+        for a, c in zip(served[CARD], served["cpu"]):
+            np.testing.assert_allclose(a.numpy(), c.numpy(), rtol=2e-4,
+                                       atol=2e-4, err_msg=arch)
+        train_extra = _family_extra(np, cfg, 4, 64, 2)
+        rows, launches = _train_parity(torch, np, cfg, train_extra,
+                                       routing if cfg.is_moe else None)
+        _no_lm_kernel(launches)
+        record = {}
+        if cfg.is_moe:
+            assert len(routes["cpu"]) == len(routes[CARD]) > 0
+            for a, c in zip(routes[CARD], routes["cpu"]):
+                assert a[:2] == c[:2] and all(
+                    torch.equal(x, y) for x, y in zip(a[2:], c[2:])), arch
+            kept = [r[-1] for r in routes["cpu"] if r[0]]
+            record = dict(
+                routing_calls_compared=len(routes["cpu"]),
+                routing_equal=True, capacity_factor=cfg.capacity_factor,
+                capacity_factor_eval=cfg.capacity_factor_eval,
+                dropped_share_training=1.0 - float(
+                    sum(int(k.sum()) for k in kept))
+                / sum(k.numel() for k in kept))
+            assert record["dropped_share_training"] > 0, record
+        emit("families_parity", arch=arch, forward_worst_frac_of_max=frac,
+             serve_max_abs_diff=serve_err, serve_tolerance=2e-4,
+             inputs=sorted(["tokens"] + list(extra)), train_steps=rows,
+             **record, seconds=time.perf_counter() - t0)
+        del models, cpu
+    torch.cuda.empty_cache()
+
+
+def _fresh_model(torch, cfg):
+    """A seeded model of ``cfg`` on the card, the allocator's peak reset;
+    returns (model, init seconds)."""
+    import gc
+
+    from repro_torch.models import Model
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, seed=0)
+    torch.cuda.synchronize()
+    assert model.device.type == CARD
+    return model, time.perf_counter() - t0
+
+
+def _sizes(cfg, model):
+    params = list(model.parameters())
+    return dict(layers=cfg.num_layers, d_model=cfg.d_model,
+                heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+                head_dim=cfg.head_dim, d_ff=cfg.d_ff,
+                vocab_size=cfg.vocab_size,
+                parameters=sum(p.numel() for p in params),
+                param_bytes=sum(p.numel() * p.element_size()
+                                for p in params),
+                param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype)
+
+
+def lm_serve_moe_phase(torch, np):
+    """Phase 24: qwen3-moe-235b-a22b at its published width (d_model
+    4,096, 64 x 128 heads, 4 KV heads, 128 experts top-8 of d_ff 1,536,
+    vocab 151,936 untied), its depth cut to 4 of 94 layers, seeded f32
+    weights, bf16 compute, through ServingEngine: 8 greedy requests of
+    16 tokens on prompts of 256-512 tokens, 4 slots.  Also the share of
+    assignments dropped in the prefills (capacity factor 2.0), and for
+    the first prefill each layer's busiest expert's assignments over the
+    mean."""
+    from dataclasses import replace
+
+    import repro_torch.models.moe as moe_mod
+    from repro_torch.configs import get_arch
+
+    cfg = replace(get_arch("qwen3-moe-235b-a22b"),
+                  num_layers=MOE_SERVE_LAYERS)
+    model, init_s = _fresh_model(torch, cfg)
+    prompts = _lm_prompts(np, cfg, *MOE_PROMPTS)
+    kept, load, route = [], [], moe_mod.route
+
+    def count(p, c, x, train):
+        r = route(p, c, x, train)
+        if x.shape[1] > 1:            # a prefill; a decode row is 1 token
+            kept.append((r.keep.sum(), r.keep.numel()))
+            load.append(torch.bincount(r.idx.flatten(),
+                                       minlength=c.n_experts))
+        return r
+    moe_mod.route = count
+    try:
+        reqs, eng, stats, wall, launches = _timed_serve(
+            torch, model, prompts, 1024, new=NEW_TOKENS)
+    finally:
+        moe_mod.route = route
+    _no_lm_kernel(launches)
+    assert len(kept) == cfg.num_layers * len(prompts), len(kept)
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    emit("lm_serve_qwen3_moe", arch=cfg.name, published_layers=get_arch(
+        cfg.name).num_layers, **_sizes(cfg, model), n_experts=e,
+         top_k=cfg.top_k, capacity_factor_eval=cfg.capacity_factor_eval,
+         init_seconds=init_s, slots=4, max_len=1024,
+         **_serve_fields(torch, prompts, reqs, eng, stats, wall),
+         dropped_share_prefill=1.0 - float(sum(int(k) for k, _ in kept))
+         / sum(n for _, n in kept),
+         busiest_expert_over_mean=[float(x.max() / x.float().mean())
+                                   for x in load[:cfg.num_layers]],
+         expert_cast_bytes_per_layer=3 * e * d * f * (4 + 2),
+         launches=launches)
+    del model, eng, reqs
+
+
+def lm_serve_vl_phase(torch, np):
+    """Phase 25: qwen2-vl-72b at its published width (d_model 8,192, 64 x
+    128 heads, 8 KV heads, d_ff 29,568, vocab 152,064 untied, M-RoPE
+    sections (16, 24, 24)), its depth cut to 8 of 80 layers, seeded f32
+    weights, bf16 compute: one request through ``Model.prefill(embeds=,
+    positions=)`` — 256 patch embeddings on a (1, 16, 16) grid, then 64
+    text tokens' embeddings, 3-D positions — and 16 greedy decode steps;
+    its last logits differ from those of the same prompt at default
+    positions.  Then ServingEngine on 4 token prompts of 64-128 tokens,
+    16 greedy tokens each."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_arch
+
+    cfg = replace(get_arch("qwen2-vl-72b"), num_layers=VL_SERVE_LAYERS)
+    model, init_s = _fresh_model(torch, cfg)
+    n_img = int(np.prod(VL_SERVE_GRID))
+    s = n_img + VL_SERVE_TEXT
+    pos = torch.from_numpy(_vl_positions(np, 1, VL_SERVE_GRID,
+                                         VL_SERVE_TEXT)).to(CARD)
+    gen = torch.Generator(device=CARD).manual_seed(1)
+    text = torch.randint(0, cfg.vocab_size, (1, VL_SERVE_TEXT),
+                         generator=gen, device=CARD)
+    with torch.no_grad():
+        embeds = torch.cat([torch.randn((1, n_img, cfg.d_model),
+                                        generator=gen, device=CARD) * 0.02,
+                            model.embed[text]], dim=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, caches = model.prefill(embeds=embeds, positions=pos,
+                                 pad_to=s + NEW_TOKENS)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    flat, _ = model.prefill(embeds=embeds)
+    mrope_moved = float((flat - last).abs().max())
+    assert mrope_moved > 0, "3-D positions changed nothing"
+    tok, out, decode_ms, finite = last.argmax(-1), [], [], [last]
+    for i in range(NEW_TOKENS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = model.decode_step(tok, caches, s + i)
+        torch.cuda.synchronize()
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+        finite.append(logits)
+        tok = logits.argmax(-1)
+        out.append(int(tok[0]))
+    assert all(bool(torch.isfinite(x).all()) for x in finite)
+    image_peak = torch.cuda.max_memory_allocated()
+    del caches, finite
+    prompts = _lm_prompts(np, cfg, 64, 128, n=4, seed=2)
+    reqs, eng, stats, wall, launches = _timed_serve(
+        torch, model, prompts, 256, new=NEW_TOKENS)
+    _no_lm_kernel(launches)
+    emit("lm_serve_qwen2_vl", arch=cfg.name, published_layers=get_arch(
+        cfg.name).num_layers, **_sizes(cfg, model),
+         mrope_sections=list(cfg.mrope_sections), init_seconds=init_s,
+         image_grid=list(VL_SERVE_GRID), image_tokens=n_img,
+         text_tokens=VL_SERVE_TEXT, image_prefill_ms=prefill_ms,
+         image_prefill_tokens_per_sec=s / (prefill_ms / 1e3),
+         image_decode_ms=decode_ms,
+         image_decode_ms_per_tick=statistics.median(decode_ms),
+         image_new_tokens=out, mrope_vs_default_max_abs_logit=mrope_moved,
+         image_peak_memory_bytes=image_peak, slots=4, max_len=256,
+         engine=_serve_fields(torch, prompts, reqs, eng, stats, wall),
+         launches=launches)
+    del model, eng, reqs
+
+
+def whisper_phase(torch, np):
+    """Phase 26: whisper-small at full size (12 encoder and 12 decoder
+    layers, d_model 768, 12 heads, d_ff 3,072, vocab 51,865, 1,500
+    frames of enc_embeds; f32 parameters, bf16 compute): a prefill of 4
+    requests of 32 tokens with their enc_embeds (the encoder included)
+    and 16 greedy decode steps; then 4 AdamW steps at batch 8 x 448
+    tokens of SyntheticLM with enc_embeds: step ms, tokens/s (decoder
+    tokens), peak memory, every value finite."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.step import make_train_step
+
+    cfg = get_arch("whisper-small")
+    model, init_s = _fresh_model(torch, cfg)
+    gen = torch.Generator(device=CARD).manual_seed(3)
+    b, s = WHISPER_REQUESTS, WHISPER_PROMPT
+    enc = torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=gen,
+                      device=CARD) * 0.1
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=CARD)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    last, caches = model.prefill(tokens, enc_embeds=enc,
+                                 pad_to=s + NEW_TOKENS)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    assert caches[0][0]["b0_x"][0].shape == (b, cfg.encoder_seq,
+                                             cfg.num_kv_heads, cfg.head_dim)
+    tok, decode_ms, finite = last.argmax(-1), [], [last]
+    for i in range(NEW_TOKENS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = model.decode_step(tok, caches, s + i)
+        torch.cuda.synchronize()
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+        finite.append(logits)
+        tok = logits.argmax(-1)
+    assert all(bool(torch.isfinite(x).all()) for x in finite)
+    _no_lm_kernel(LAUNCHES)
+    serve_peak = torch.cuda.max_memory_allocated()
+    del caches, finite, enc
+
+    params = dict(model.named_parameters())
+    opt = init_opt_state(params)
+    step_fn = make_train_step(model, AdamWConfig())
+    data = SyntheticLM(DataConfig(cfg.vocab_size, WHISPER_TRAIN_SEQ,
+                                  WHISPER_TRAIN_BATCH, seed=0))
+    enc = torch.randn((WHISPER_TRAIN_BATCH, cfg.encoder_seq, cfg.d_model),
+                      generator=gen, device=CARD) * 0.1
+    rows, params, opt, launches = _timed_train(
+        torch, np, step_fn, params, opt,
+        (dict(data.batch(i), enc_embeds=enc)
+         for i in range(WHISPER_TRAIN_STEPS)),
+        WHISPER_TRAIN_BATCH * WHISPER_TRAIN_SEQ)
+    _no_lm_kernel(launches)
+    assert all(bool(torch.isfinite(p).all()) for p in params.values())
+    emit("whisper", arch=cfg.name, **_sizes(cfg, model),
+         encoder_layers=cfg.encoder_layers, encoder_seq=cfg.encoder_seq,
+         init_seconds=init_s, requests=b, prompt_len=s,
+         prefill_ms=prefill_ms, decode_ms=decode_ms,
+         decode_ms_per_tick=statistics.median(decode_ms),
+         decode_tokens_per_sec=b / (statistics.median(decode_ms) / 1e3),
+         serve_peak_memory_bytes=serve_peak, train_batch=WHISPER_TRAIN_BATCH,
+         train_seq=WHISPER_TRAIN_SEQ, lr=AdamWConfig().lr, train_steps=rows,
+         median_step_ms_after_first=statistics.median(
+             r["step_ms"] for r in rows[1:]),
+         train_peak_memory_bytes=max(r["peak_memory_bytes"] for r in rows))
+    del model, params, opt, step_fn
+
+
+def family_phases(torch, np):
+    """Phases 23-26."""
+    import gc
+
+    families_parity_phase(torch, np)
+    lm_serve_moe_phase(torch, np)
+    lm_serve_vl_phase(torch, np)
+    whisper_phase(torch, np)
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

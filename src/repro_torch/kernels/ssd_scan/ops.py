@@ -9,13 +9,15 @@ row (shared by the heads, n_groups = 1).  bf16 chunks of at most 128
 steps and states of at most 128 rows run on the tensor cores, the rest
 on the CUDA cores (:func:`ssd_scan_body`).
 
-The kernel has no backward yet: on a CUDA tensor that needs a gradient
-the wrapper raises rather than hand back an output that autograd cannot
-see past.  The SSD backward does not reduce to this forward kernel (dB
-and dC contract dy with x per head, which its shared (B, S, N) Bm and Cm
-cannot express), so it is a kernel of its own (ROADMAP.md, queue 1,
-item 16).  On the CPU the plain version is ordinary differentiable
-torch code and trains."""
+On CUDA tensors that need a gradient the launch is wrapped in an
+autograd function whose backward recomputes the plain version on the
+same card tensors and differentiates it, as flash attention's does; with
+no gradient wanted (serving's prefill) the launch runs bare.  The SSD
+backward does not reduce to this forward kernel (dB and dC contract dy
+with x per head, which its shared (B, S, N) Bm and Cm cannot express):
+a backward kernel of its own is the later speed-up of this path
+(ROADMAP.md, queue 1, item 16).  On the CPU the plain version is
+ordinary differentiable torch code."""
 
 from __future__ import annotations
 
@@ -51,12 +53,53 @@ def launch_ssd_scan(xbar, a_log, Bm, Cm, y, hout, q: int):
         common.DTYPE_CODE[xbar.dtype], common.stream(xbar.device)))
 
 
+def _scan(xbar, a_log, Bm, Cm, chunk: int):
+    """The kernel on checked CUDA tensors: pad S to the chunk, launch
+    (counted), drop the padded rows."""
+    b, s, h, p = xbar.shape
+    n = Bm.shape[-1]
+    q = chunk_len(s, chunk)
+    if s % q:
+        pad = q - s % q
+        xbar = F.pad(xbar, (0, 0, 0, 0, 0, pad))
+        a_log = F.pad(a_log, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+    y = torch.empty_like(xbar)
+    hout = torch.empty((b, h, n, p), dtype=torch.float32,
+                       device=xbar.device)
+    launch_ssd_scan(xbar, a_log, Bm, Cm, y, hout, q)
+    common.LAUNCHES["ssd_scan"] += 1
+    return y[:, :s], hout
+
+
+class _SSDScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xbar, a_log, Bm, Cm, chunk):
+        ctx.save_for_backward(xbar, a_log, Bm, Cm)
+        ctx.chunk = chunk
+        return _scan(xbar, a_log, Bm, Cm, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        # the plain version recomputed on the same tensors and
+        # differentiated (a backward kernel: ROADMAP.md, queue 1, item 16)
+        with torch.enable_grad():
+            args = [t.detach().requires_grad_(need) for t, need in
+                    zip(ctx.saved_tensors, ctx.needs_input_grad)]
+            wanted = [t for t in args if t.requires_grad]
+            y, hfin = ssd_chunk_scan_ref(*args, chunk=ctx.chunk)
+            grads = iter(torch.autograd.grad((y, hfin), wanted, (dy, dh)))
+        return (*(next(grads) if t.requires_grad else None for t in args),
+                None)
+
+
 def ssd_chunk_scan(xbar, a_log, Bm, Cm, chunk: int = 128):
     """xbar (B,S,H,P) float32 or bfloat16; a_log (B,S,H) float32; Bm, Cm
     (B,S,N) of xbar's type -> (y (B,S,H,P) of xbar's type, h_final
     (B,H,N,P) float32).  The kernel on CUDA tensors, the plain version on
-    CPU tensors; on CUDA tensors that need a gradient it raises
-    ``NotImplementedError`` (no backward kernel yet)."""
+    CPU tensors; differentiable (on the card the backward recomputes the
+    plain version)."""
     if xbar.dim() != 4:
         raise ValueError(f"xbar must be (B, S, H, P), got "
                          f"{tuple(xbar.shape)}")
@@ -71,20 +114,7 @@ def ssd_chunk_scan(xbar, a_log, Bm, Cm, chunk: int = 128):
         return ssd_chunk_scan_ref(xbar, a_log, Bm, Cm, chunk=chunk)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (xbar, a_log, Bm, Cm)):
-        raise NotImplementedError(
-            "ssd_chunk_scan has no backward kernel on the card yet "
-            "(ROADMAP.md, queue 1, item 16: the SSD backward kernel); "
-            "train the SSM family on the CPU, or call this under "
-            "torch.no_grad()")
-    q = chunk_len(s, chunk)
-    if s % q:
-        pad = q - s % q
-        xbar = F.pad(xbar, (0, 0, 0, 0, 0, pad))
-        a_log = F.pad(a_log, (0, 0, 0, pad))
-        Bm = F.pad(Bm, (0, 0, 0, pad))
-        Cm = F.pad(Cm, (0, 0, 0, pad))
-    y = torch.empty_like(xbar)
-    hout = torch.empty((b, h, n, p), dtype=torch.float32, device=dev)
-    launch_ssd_scan(xbar, a_log, Bm, Cm, y, hout, q)
-    common.LAUNCHES["ssd_scan"] += 1
-    return y[:, :s], hout
+        return _SSDScan.apply(xbar, a_log, Bm, Cm, chunk)
+    # no gradient wanted: the bare launch, without an autograd node's
+    # host cost
+    return _scan(xbar, a_log, Bm, Cm, chunk)

@@ -2,15 +2,19 @@
 
 The JAX package keeps a stack's layers as leaves with a leading repeat
 axis, ``params["stack{i}"]["b{j}"][...]`` of shape ``(n_rep, ...)``, in
-``stack_layout`` order; the port keeps one module a superblock,
-``stacks.{i}.{r}.b{j}....``.  :func:`load_jax_params` unstacks each leaf
-along that axis and copies it in.  It takes plain numpy (a nested dict,
-``jax.tree.map(np.asarray, params)``), so this module needs no JAX; only
-the tests call it with JAX's weights.  :func:`stack_superblocks` and
-:func:`unstack_superblocks` move a dict of tensors keyed by the port's
-names to JAX's leaves (``stack{i}.b{j}....`` with the repeat axis in
-front) and back, for code that must see JAX's leaves (top-k selection
-per leaf).
+``stack_layout`` order, and an encoder-decoder's encoder likewise as
+``params["enc_stack"]["b0"][...]``; the port keeps one module a
+superblock, ``stacks.{i}.{r}.b{j}....`` and ``enc_stack.{r}.b0....``.
+Every other leaf (``embed``, ``head``, ``final_norm``, ``enc_norm``)
+keeps its name, and within a layer the names are JAX's (``moe.router``,
+``xattn.wq``, ``ln_x``, ...).  :func:`load_jax_params` unstacks each
+leaf along the repeat axis and copies it in.  It takes plain numpy (a
+nested dict, ``jax.tree.map(np.asarray, params)``), so this module needs
+no JAX; only the tests call it with JAX's weights.
+:func:`stack_superblocks` and :func:`unstack_superblocks` move a dict of
+tensors keyed by the port's names to JAX's leaves (``stack{i}.b{j}....``
+and ``enc_stack.b0....`` with the repeat axis in front) and back, for
+code that must see JAX's leaves (top-k selection per leaf).
 """
 
 from __future__ import annotations
@@ -24,6 +28,17 @@ from .transformer import Model
 
 __all__ = ["load_jax_params", "from_jax_params", "port_state",
            "stack_superblocks", "unstack_superblocks"]
+
+
+def _port_prefix(head: str):
+    """The port's name prefix of a JAX top-level key holding stacked
+    superblocks (``stack{i}`` -> ``stacks.{i}``, ``enc_stack`` ->
+    ``enc_stack``), or None for a plain leaf."""
+    if head == "enc_stack":
+        return "enc_stack"
+    if head.startswith("stack") and head[5:].isdigit():
+        return f"stacks.{head[5:]}"
+    return None
 
 
 def _flatten(node, prefix: Tuple[str, ...] = ()):
@@ -42,11 +57,10 @@ def port_state(params) -> Dict[str, np.ndarray]:
         arr = np.asarray(leaf)
         if arr.dtype.name == "bfloat16":       # numpy has no bf16 of its own
             arr = arr.astype(np.float32)
-        if path[0].startswith("stack"):
+        prefix = _port_prefix(path[0])
+        if prefix is not None:
             for r in range(arr.shape[0]):
-                name = ".".join(("stacks", path[0][len("stack"):], str(r))
-                                + path[1:])
-                state[name] = arr[r]
+                state[".".join((prefix, str(r)) + path[1:])] = arr[r]
         else:
             state[".".join(path)] = arr
     return state
@@ -81,7 +95,8 @@ def from_jax_params(cfg, params, device=None) -> Model:
 def stack_superblocks(tree: Dict[str, torch.Tensor]
                       ) -> Dict[str, torch.Tensor]:
     """``stacks.{i}.{r}.{rest}`` leaves stacked over r into
-    ``stack{i}.{rest}`` (JAX's leaves); other leaves as they are."""
+    ``stack{i}.{rest}``, ``enc_stack.{r}.{rest}`` into
+    ``enc_stack.{rest}`` (JAX's leaves); other leaves as they are."""
     out: Dict[str, torch.Tensor] = {}
     groups: Dict[str, Dict[int, torch.Tensor]] = {}
     for name, t in tree.items():
@@ -89,6 +104,9 @@ def stack_superblocks(tree: Dict[str, torch.Tensor]
         if parts[0] == "stacks":
             key = ".".join([f"stack{parts[1]}"] + parts[3:])
             groups.setdefault(key, {})[int(parts[2])] = t
+        elif parts[0] == "enc_stack":
+            key = ".".join(["enc_stack"] + parts[2:])
+            groups.setdefault(key, {})[int(parts[1])] = t
         else:
             out[name] = t
     for key, reps in groups.items():
@@ -102,9 +120,11 @@ def unstack_superblocks(tree: Dict[str, torch.Tensor]
     out: Dict[str, torch.Tensor] = {}
     for name, t in tree.items():
         head, _, rest = name.partition(".")
-        if head.startswith("stack") and head[5:].isdigit():
+        prefix = _port_prefix(head)
+        if prefix is not None:
             for r in range(t.shape[0]):
-                out[f"stacks.{head[5:]}.{r}.{rest}"] = t[r]
+                out[f"{prefix}.{r}.{rest}"] = t[r]
         else:
             out[name] = t
     return out
+

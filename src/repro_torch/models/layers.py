@@ -1,6 +1,6 @@
-"""Core transformer layers: RMSNorm, RoPE, GQA attention (causal /
-local / full, with the blockwise branch), one-token decode attention
-against a KV cache, the SwiGLU MLP.
+"""Core transformer layers: RMSNorm, RoPE and M-RoPE, GQA attention
+(causal / local / full / cross, with the blockwise branch), one-token
+decode attention against a KV cache, the SwiGLU MLP.
 
 The port of the JAX package's ``models/layers.py``.  Functions take a
 parameter module (``p.wq`` where JAX reads ``p["wq"]``) and keep the JAX
@@ -8,9 +8,7 @@ layouts: activations (B, S, d), heads (B, S, H, D), caches (B, S, KV,
 D).  Plain matrix products stay ``torch.matmul``: the JAX package leaves
 them to XLA, outside any kernel.  Products that JAX accumulates in f32
 (``preferred_element_type``) are taken here on f32 copies of their
-operands, which for bf16 inputs is the same product.  M-RoPE (``mrope``)
-and cross-attention wait for the families that use them (``Model``
-refuses those archs).
+operands, which for bf16 inputs is the same product.
 """
 
 from __future__ import annotations
@@ -22,7 +20,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = [
-    "rms_norm", "rope", "attention", "decode_attention", "mlp",
+    "rms_norm", "rope", "mrope", "attention", "decode_attention",
+    "decode_cross_attention", "mlp",
     "init_dense", "big_neg", "make_mask", "ATTN_CHUNK",
 ]
 
@@ -70,6 +69,36 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def mrope(x: torch.Tensor, positions: torch.Tensor, sections,
+          theta: float = 1e4):
+    """Multimodal RoPE (Qwen2-VL): positions (B, 3, S), one position
+    stream a section group (temporal, height, width); the head_dim/2
+    frequency axis is split by ``sections``, section i reading stream i."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {tuple(sections)} do not sum to "
+                         f"head_dim/2 = {half}")
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    pos = torch.cat([positions[:, i:i + 1].float().expand(-1, n, -1)
+                     for i, n in enumerate(sections)], dim=1)  # (B,half,S)
+    ang = pos.transpose(1, 2) * freqs                        # (B,S,half)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _rotate(cfg, q, k, positions):
+    """RoPE on q and k: M-RoPE for (B, 3, S) positions of an M-RoPE arch,
+    else RoPE on (B, S) positions (the first stream of (B, 3, S) ones)."""
+    if cfg.mrope and positions.dim() == 3:
+        return (mrope(q, positions, cfg.mrope_sections, cfg.rope_theta),
+                mrope(k, positions, cfg.mrope_sections, cfg.rope_theta))
+    pos2 = positions if positions.dim() == 2 else positions[:, 0]
+    return rope(q, pos2, cfg.rope_theta), rope(k, pos2, cfg.rope_theta)
 
 
 # --------------------------------------------------------------------- #
@@ -139,11 +168,15 @@ def _sdpa_blockwise(q, k, v, mask_kind: str, window: int, compute_dtype,
     return torch.cat(outs, dim=1)
 
 
-def _project(p, cfg, x, b, s):
+def _project(p, cfg, x, src):
+    """q from x, k and v from ``src`` (x itself, or the encoder output of
+    cross attention), qk-normed where the arch says so."""
     cd = x.dtype
+    b, s, _ = x.shape
+    skv = src.shape[1]
     q = (x @ p.wq.to(cd)).reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = (x @ p.wk.to(cd)).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = (x @ p.wv.to(cd)).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    k = (src @ p.wk.to(cd)).reshape(b, skv, cfg.num_kv_heads, cfg.head_dim)
+    v = (src @ p.wv.to(cd)).reshape(b, skv, cfg.num_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
@@ -151,21 +184,28 @@ def _project(p, cfg, x, b, s):
 
 
 def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor,
-              mask_kind: str = "causal"):
-    """Self-attention over a full sequence (prefill / forward); positions
-    (B, S).  Returns (out, (k, v)) with k, v for the cache.  The blockwise
-    branch runs when the sequence is a multiple of ``ATTN_CHUNK`` above
-    one chunk."""
+              mask_kind: str = "causal",
+              xattn_kv: Optional[torch.Tensor] = None):
+    """Self- or cross-attention over a full sequence (prefill / forward).
+    positions (B, S), or (B, 3, S) for an M-RoPE arch.  With ``xattn_kv``
+    (B, S_enc, d) k and v come from it, unrotated, under a full mask.
+    Returns (out, (k, v)) with k, v for the cache.  The blockwise branch
+    runs for causal or local self-attention over a multiple of
+    ``ATTN_CHUNK`` above one chunk."""
     b, s, _ = x.shape
     cd = x.dtype
-    q, k, v = _project(p, cfg, x, b, s)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    src = x if xattn_kv is None else xattn_kv
+    skv = src.shape[1]
+    q, k, v = _project(p, cfg, x, src)
+    if xattn_kv is None:
+        q, k = _rotate(cfg, q, k, positions)
+    else:
+        mask_kind = "full"
     if (cfg.attn_impl == "blockwise" and mask_kind in ("causal", "local")
             and s % ATTN_CHUNK == 0 and s > ATTN_CHUNK):
         out = _sdpa_blockwise(q, k, v, mask_kind, cfg.window, cd)
     else:
-        mask = make_mask(s, s, mask_kind, cfg.window, device=x.device)
+        mask = make_mask(s, skv, mask_kind, cfg.window, device=x.device)
         out = _sdpa(q, k, v, mask, cd)
     out = out.reshape(b, s, cfg.attn_q_dim) @ p.wo.to(cd)
     return out, (k, v)
@@ -186,14 +226,15 @@ def decode_attention(p, cfg, x: torch.Tensor, cache_k: torch.Tensor,
     b = x.shape[0]
     cd = x.dtype
     smax = cache_k.shape[1]
-    q, k, v = _project(p, cfg, x, b, 1)
+    q, k, v = _project(p, cfg, x, x)
     if isinstance(cur_index, torch.Tensor) and cur_index.dim() == 1:
         pos = cur_index.to(device=x.device, dtype=torch.int32)[:, None]
     else:
         pos = torch.full((b, 1), int(cur_index), dtype=torch.int32,
                          device=x.device)
-    q = rope(q, pos, cfg.rope_theta)
-    k = rope(k, pos, cfg.rope_theta)
+    # an M-RoPE arch decodes with its three streams equal
+    q, k = _rotate(cfg, q, k, pos[:, None, :].expand(b, 3, 1)
+                   if cfg.mrope else pos)
 
     circular = bool(window) and smax <= window
     wpos = (pos[:, 0] % smax if circular else pos[:, 0]).long()
@@ -213,6 +254,20 @@ def decode_attention(p, cfg, x: torch.Tensor, cache_k: torch.Tensor,
     out = _sdpa(q, cache_k.to(cd), cache_v.to(cd), mask, cd)
     out = out.reshape(b, 1, cfg.attn_q_dim) @ p.wo.to(cd)
     return out, cache_k, cache_v
+
+
+def decode_cross_attention(p, cfg, x: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor):
+    """One-token cross attention against the encoder's cached k, v (B,
+    S_enc, KV, D) under a full mask.  As in the JAX package's decode, q is
+    neither qk-normed nor rotated."""
+    b = x.shape[0]
+    cd = x.dtype
+    q = (x @ p.wq.to(cd)).reshape(b, 1, cfg.num_heads, cfg.head_dim)
+    mask = torch.ones((1, 1, 1, 1, k.shape[1]), dtype=torch.bool,
+                      device=x.device)
+    out = _sdpa(q, k.to(cd), v.to(cd), mask, cd)
+    return out.reshape(b, 1, cfg.attn_q_dim) @ p.wo.to(cd)
 
 
 # --------------------------------------------------------------------- #

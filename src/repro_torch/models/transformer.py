@@ -1,4 +1,5 @@
-"""Decoder-LM stack of the dense, SSM and hybrid families.
+"""Decoder-LM stack (plus the whisper-style encoder-decoder) of every
+family: dense, MoE, SSM, hybrid, encoder-decoder and M-RoPE.
 
 The port of the JAX package's ``models/transformer.py``.  Depth is
 organised in *superblocks*, as there: the block pattern (e.g.
@@ -16,7 +17,17 @@ Three entry points share the layer code:
 Caches are a list (one entry a stack) of lists (one a superblock) of
 dicts ``{"b0": cache, ...}``; a layer's cache has the batch on axis 0:
 (k, v) of (B, S, KV, D) for attention, (conv_state, h) for RG-LRU,
-(conv_state, ssm_state) for Mamba-2.
+(conv_state, ssm_state) for Mamba-2.  An encoder-decoder's superblocks
+also hold ``"b0_x"``: the cross-attention (k, v) of (B, S_enc, KV, D),
+computed once from the encoder's output by the prefill and passed
+through by every decode step.
+
+The entry points take ``tokens`` or ``embeds`` (the VLM frontend's
+stub), ``positions`` ((B, S), or (B, 3, S) for an M-RoPE arch; by
+default 0..S-1 in every stream) and, for an encoder-decoder,
+``enc_embeds`` (the audio frontend's stub), as the JAX package's do.
+An MoE layer returns its balance loss; ``forward_aux`` hands the sum to
+the train step, ``forward`` the logits alone.
 
 The recurrent layers' prefill always goes through the kernel wrappers
 of ``repro_torch.kernels``: the hand-written kernel for CUDA tensors,
@@ -29,10 +40,10 @@ Training differentiates ``forward``.  ``remat`` recomputes each
 superblock's activations in the backward, as the JAX package's
 ``jax.checkpoint`` over the scan body does: ``"full"`` keeps nothing
 (``nothing_saveable``), ``"dots"`` keeps the matrix products' outputs
-(``dots_saveable``, through selective checkpointing).  MoE,
-encoder-decoder and M-RoPE archs, and the knobs ``unroll`` and
-``seq_shard``, are not ported yet (the port's superblock loop is a
-Python loop already).
+(``dots_saveable``, through selective checkpointing).  The knobs
+``unroll`` and ``seq_shard`` wait for the sharding slice of the port
+(ROADMAP.md, queue 1, item 12; the superblock loop is a Python loop
+already).
 """
 
 from __future__ import annotations
@@ -46,15 +57,15 @@ import torch.nn as nn
 import torch.utils.checkpoint as ckpt
 
 from ..backend import resolve_device
-from .layers import attention, decode_attention, init_dense, mlp, rms_norm
+from .layers import (attention, decode_attention, decode_cross_attention,
+                     init_dense, mlp, rms_norm)
+from .moe import MoE, moe_ffn
 from .rglru import RGLRU, rglru_decode_step, rglru_forward
 from .ssm import SSM, _param, ssd_forward, ssm_decode_step
 
 __all__ = ["Model", "build_model", "StackSpec", "stack_layout",
            "cache_seq_len", "REMATS"]
 
-_LATER = ("waits for a later slice of the port (ROADMAP.md, queue 1, "
-          "item 13)")
 #: the ``remat`` modes of ``Model``
 REMATS = ("none", "dots", "full")
 
@@ -90,10 +101,13 @@ class MLP(nn.Module):
 
 
 class Layer(nn.Module):
-    """One block: pre-norm, the mixer (``attn``, ``rec`` or ``ssm``),
-    and for every kind but ssm a pre-norm SwiGLU MLP."""
+    """One block: pre-norm, the mixer (``attn``, ``rec`` or ``ssm``);
+    with ``cross`` (an encoder-decoder's decoder) a pre-norm cross
+    attention ``xattn``; and for every kind but ssm a pre-norm SwiGLU
+    MLP, or for an MoE arch the experts ``moe``."""
 
-    def __init__(self, cfg, kind: str, dtype, device, gen):
+    def __init__(self, cfg, kind: str, dtype, device, gen,
+                 cross: bool = False):
         super().__init__()
         self.kind = kind
         self.ln1 = _param(torch.ones(cfg.d_model, dtype=dtype, device=device))
@@ -103,16 +117,28 @@ class Layer(nn.Module):
             self.rec = RGLRU(cfg, dtype, device, gen)
         else:
             self.ssm = SSM(cfg, dtype, device, gen)
+        if cross:
+            self.ln_x = _param(torch.ones(cfg.d_model, dtype=dtype,
+                                          device=device))
+            self.xattn = Attention(cfg, dtype, device, gen)
         if _has_mlp(cfg, kind):
             self.ln2 = _param(torch.ones(cfg.d_model, dtype=dtype,
                                          device=device))
-            self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device, gen)
+            if cfg.is_moe:
+                self.moe = MoE(cfg, dtype, device, gen)
+            else:
+                self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device, gen)
 
 
 def apply_layer(layer: Layer, cfg, x, positions, mode: str, cache=None,
-                cur_index=None):
-    """Returns (x, new_cache)."""
+                cur_index=None, enc_out=None, mask_kind=None):
+    """Returns (x, new_cache, aux): aux the MoE layer's balance loss, None
+    for a layer without experts.  ``enc_out`` is the encoder's output in
+    "train" and "prefill" mode, the layer's cached cross (k, v) in
+    "decode"; the MoE routes at ``capacity_factor`` in "train" mode,
+    at ``capacity_factor_eval`` otherwise."""
     kind = layer.kind
+    aux = None
     h = rms_norm(x, layer.ln1, cfg.norm_eps)
     if kind == "attn":
         if mode == "decode":
@@ -121,7 +147,7 @@ def apply_layer(layer: Layer, cfg, x, positions, mode: str, cache=None,
                                            window=cfg.window)
             new_cache = (ck, cv)
         else:
-            mk = "local" if cfg.window else "causal"
+            mk = mask_kind or ("local" if cfg.window else "causal")
             out, new_cache = attention(layer.attn, cfg, h, positions, mk)
     elif kind == "rec":
         if mode == "decode":
@@ -134,9 +160,22 @@ def apply_layer(layer: Layer, cfg, x, positions, mode: str, cache=None,
         else:
             out, new_cache = ssd_forward(layer.ssm, cfg, h)
     x = x + out
+    if hasattr(layer, "xattn"):
+        h = rms_norm(x, layer.ln_x, cfg.norm_eps)
+        if mode == "decode":
+            out = decode_cross_attention(layer.xattn, cfg, h, *enc_out)
+        else:
+            out, _ = attention(layer.xattn, cfg, h, positions,
+                               xattn_kv=enc_out)
+        x = x + out
     if _has_mlp(cfg, kind):
-        x = x + mlp(layer.mlp, rms_norm(x, layer.ln2, cfg.norm_eps))
-    return x, new_cache
+        h = rms_norm(x, layer.ln2, cfg.norm_eps)
+        if cfg.is_moe:
+            y, aux = moe_ffn(layer.moe, cfg, h, train=(mode == "train"))
+        else:
+            y = mlp(layer.mlp, h)
+        x = x + y
+    return x, new_cache, aux
 
 
 def cache_seq_len(cfg, kind: str, seq: int) -> int:
@@ -193,21 +232,34 @@ def _save_dots(ctx, op, *args, **kwargs):
     return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _run_block(block, cfg, x, positions):
+def _add(total, aux):
+    """A running sum of balance losses, None while there is none."""
+    if aux is None:
+        return total
+    return aux if total is None else total + aux
+
+
+def _run_block(block, cfg, x, positions, enc_out=None, mask_kind=None):
+    """One superblock of the training forward; returns (x, aux)."""
+    aux = None
     for layer in block.values():
-        x, _ = apply_layer(layer, cfg, x, positions, "train")
-    return x
+        x, _, a = apply_layer(layer, cfg, x, positions, "train",
+                              enc_out=enc_out, mask_kind=mask_kind)
+        aux = _add(aux, a)
+    return x, aux
 
 
-def _remat_block(remat: str, block, cfg, x, positions):
-    """One superblock of the training forward, its activations
-    recomputed in the backward (``remat`` "full" or "dots")."""
+def _remat_block(remat: str, block, cfg, x, positions, enc_out=None,
+                 mask_kind=None):
+    """:func:`_run_block` with its activations recomputed in the backward
+    (``remat`` "full" or "dots"); the aux comes out of the checkpointed
+    superblock beside x."""
     kw = {}
     if remat == "dots":
         kw["context_fn"] = functools.partial(
             ckpt.create_selective_checkpoint_contexts, _save_dots)
-    return ckpt.checkpoint(_run_block, block, cfg, x, positions,
-                           use_reentrant=False, **kw)
+    return ckpt.checkpoint(_run_block, block, cfg, x, positions, enc_out,
+                           mask_kind, use_reentrant=False, **kw)
 
 
 # ------------------------------------------------------------------ #
@@ -218,12 +270,16 @@ class Model(nn.Module):
 
     ``device`` is resolved by ``repro_torch.backend.resolve_device`` (the
     card unless ``"cpu"`` is asked for); ``dtype`` is the parameters'
-    type (default ``cfg.param_dtype``); the weights come from
-    ``generator`` (a ``torch.Generator`` on ``device``) or from one seeded
-    with ``seed``.  They cannot equal the JAX package's ``Model.init``
-    draws; ``repro_torch.models.convert`` loads those.  The parameters
-    require grad (``repro_torch.training`` trains them); ``remat`` is one
-    of :data:`REMATS`.  Activations run in ``cfg.compute_dtype``."""
+    type (default ``cfg.param_dtype``; an MoE router is float32
+    whatever it is); the weights come from ``generator`` (a
+    ``torch.Generator`` on ``device``) or from one seeded with ``seed``.
+    They cannot equal the JAX package's ``Model.init`` draws;
+    ``repro_torch.models.convert`` loads those.  The parameters require
+    grad (``repro_torch.training`` trains them); ``remat`` is one of
+    :data:`REMATS`.  Activations run in ``cfg.compute_dtype``.  An
+    encoder-decoder also has ``enc_stack`` (``encoder_layers``
+    superblocks of one attention layer under a full mask) and
+    ``enc_norm``."""
 
     def __init__(self, cfg, device=None, dtype=None,
                  generator: Optional[torch.Generator] = None, seed: int = 0,
@@ -232,11 +288,6 @@ class Model(nn.Module):
         if remat not in REMATS:
             raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
         self.remat = remat
-        for flag, what in ((cfg.is_moe, "MoE"),
-                           (cfg.is_encdec, "the encoder-decoder"),
-                           (cfg.mrope, "M-RoPE")):
-            if flag:
-                raise NotImplementedError(f"{cfg.name}: {what} {_LATER}")
         self.cfg = cfg
         dev = resolve_device(device)
         dtype = dtype or getattr(torch, cfg.param_dtype)
@@ -246,7 +297,8 @@ class Model(nn.Module):
             dtype=torch.float32, device=dev) * 0.02).to(dtype))
         self.stacks = nn.ModuleList([
             nn.ModuleList([
-                nn.ModuleDict({f"b{i}": Layer(cfg, kind, dtype, dev, gen)
+                nn.ModuleDict({f"b{i}": Layer(cfg, kind, dtype, dev, gen,
+                                              cross=cfg.is_encdec)
                                for i, kind in enumerate(spec.pattern)})
                 for _ in range(spec.n_rep)])
             for spec in stack_layout(cfg)])
@@ -255,6 +307,12 @@ class Model(nn.Module):
         if not cfg.tie_embeddings:
             self.head = _param(init_dense(gen, (cfg.d_model, cfg.vocab_size),
                                           dtype, dev))
+        if cfg.is_encdec:
+            self.enc_stack = nn.ModuleList([
+                nn.ModuleDict({"b0": Layer(cfg, "attn", dtype, dev, gen)})
+                for _ in range(cfg.encoder_layers)])
+            self.enc_norm = _param(torch.ones(cfg.d_model, dtype=dtype,
+                                              device=dev))
 
     @property
     def device(self) -> torch.device:
@@ -269,57 +327,133 @@ class Model(nn.Module):
         tokens = torch.as_tensor(tokens, device=self.device).long()
         return self.embed[tokens].to(self.compute_dtype)
 
+    def _inputs(self, tokens, embeds):
+        """The token embeddings, or ``embeds`` (B, S, d) in their place."""
+        if embeds is None:
+            return self._embed(tokens)
+        return torch.as_tensor(embeds, device=self.device).to(
+            self.compute_dtype)
+
     def _logits(self, x):
         head = self.embed.t() if self.cfg.tie_embeddings else self.head
         return (x @ head.to(x.dtype)).float()
 
-    def _run(self, x, positions, mode: str, caches=None, cur_index=None):
-        """Every layer in order; returns (x, caches) with the caches of
-        the prefill or decode mode (None in "train")."""
+    def _positions(self, x, positions=None):
+        """``positions`` on the device, or 0..S-1 for every row — in all
+        three streams, (B, 3, S), for an M-RoPE arch."""
+        if positions is not None:
+            return torch.as_tensor(positions, device=x.device)
+        b, s, _ = x.shape
+        pos = torch.arange(s, device=x.device, dtype=torch.int32)[
+            None].expand(b, s)
+        return pos[:, None].expand(b, 3, s) if self.cfg.mrope else pos
+
+    def _block(self, block, x, positions, enc_out=None, mask_kind=None):
+        """One superblock of the training forward; returns (x, aux)."""
+        if self.remat != "none" and torch.is_grad_enabled():
+            return _remat_block(self.remat, block, self.cfg, x, positions,
+                                enc_out, mask_kind)
+        return _run_block(block, self.cfg, x, positions, enc_out, mask_kind)
+
+    def encode(self, enc_embeds):
+        """The bidirectional encoder over the frontend's embeddings (B,
+        S_enc, d): (B, S_enc, d) in the compute type."""
+        x = torch.as_tensor(enc_embeds, device=self.device).to(
+            self.compute_dtype)
+        b, s, _ = x.shape
+        pos = torch.arange(s, device=x.device, dtype=torch.int32)[
+            None].expand(b, s)
+        for block in self.enc_stack:
+            x, _ = self._block(block, x, pos, mask_kind="full")
+        return rms_norm(x, self.enc_norm, self.cfg.norm_eps)
+
+    def _encoded(self, enc_embeds):
+        if not self.cfg.is_encdec:
+            return None
+        if enc_embeds is None:
+            raise ValueError(
+                f"{self.cfg.name} is an encoder-decoder: pass enc_embeds "
+                f"(B, S_enc, d_model), the frontend's output")
+        return self.encode(enc_embeds)
+
+    def _run(self, x, positions, mode: str, caches=None, cur_index=None,
+             enc_out=None):
+        """Every decoder layer in order; returns (x, caches, aux) with the
+        caches of the prefill or decode mode (None in "train") and the
+        summed balance loss (None without experts)."""
+        aux = None
         if mode == "train":
             for stack in self.stacks:
                 for block in stack:
-                    if self.remat != "none" and torch.is_grad_enabled():
-                        x = _remat_block(self.remat, block, self.cfg, x,
-                                         positions)
-                    else:
-                        x = _run_block(block, self.cfg, x, positions)
-            return x, None
+                    x, a = self._block(block, x, positions, enc_out)
+                    aux = _add(aux, a)
+            return x, None, aux
         out = []
         for s, stack in enumerate(self.stacks):
             stack_out = []
             for r, block in enumerate(stack):
+                cached = caches[s][r] if caches is not None else None
                 new_c = {}
                 for name, layer in block.items():
-                    c_in = caches[s][r][name] if caches is not None else None
-                    x, c = apply_layer(layer, self.cfg, x, positions, mode,
-                                       cache=c_in, cur_index=cur_index)
-                    new_c[name] = c
+                    c_in, eo = None, enc_out
+                    if cached is not None:
+                        c_in = cached[name]
+                        eo = cached.get(f"{name}_x")
+                        if eo is not None:
+                            new_c[f"{name}_x"] = eo
+                    x, new_c[name], a = apply_layer(
+                        layer, self.cfg, x, positions, mode, cache=c_in,
+                        cur_index=cur_index, enc_out=eo)
+                    aux = _add(aux, a)
                 stack_out.append(new_c)
             out.append(stack_out)
-        return x, out
+        return x, out, aux
 
-    def _positions(self, x):
-        b, s, _ = x.shape
-        return torch.arange(s, device=x.device, dtype=torch.int32)[
-            None].expand(b, s)
+    def _cross_kv(self, layer, enc_out):
+        """A decoder layer's cross-attention (k, v) of the encoder output,
+        each (B, S_enc, KV, D)."""
+        b, s, _ = enc_out.shape
+        cd = enc_out.dtype
+        shape = (b, s, self.cfg.num_kv_heads, self.cfg.head_dim)
+        return ((enc_out @ layer.xattn.wk.to(cd)).reshape(shape),
+                (enc_out @ layer.xattn.wv.to(cd)).reshape(shape))
 
     # ---------------- entry points ------------------------------------ #
-    def forward(self, tokens):
-        """Full-sequence logits (B, S, V), f32.  ``tokens`` (B, S)."""
-        x = self._embed(tokens)
-        x, _ = self._run(x, self._positions(x), "train")
+    def forward_aux(self, tokens=None, positions=None, embeds=None,
+                    enc_embeds=None):
+        """Full-sequence logits (B, S, V) f32 and the summed MoE balance
+        loss (a f32 scalar, 0 for an arch without experts).  ``tokens``
+        (B, S), or ``embeds`` (B, S, d) in their place; ``positions`` as
+        :meth:`_positions` takes them; ``enc_embeds`` (B, S_enc, d) for
+        an encoder-decoder.  The MoE routes at its training capacity."""
+        x = self._inputs(tokens, embeds)
+        enc_out = self._encoded(enc_embeds)
+        x, _, aux = self._run(x, self._positions(x, positions), "train",
+                              enc_out=enc_out)
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
-        return self._logits(x)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return self._logits(x), aux
+
+    def forward(self, tokens=None, positions=None, embeds=None,
+                enc_embeds=None):
+        """The logits of :meth:`forward_aux` alone."""
+        return self.forward_aux(tokens, positions, embeds, enc_embeds)[0]
 
     @torch.no_grad()
-    def prefill(self, tokens, pad_to: Optional[int] = None):
-        """Run the prompt (B, S); return (last-token logits (B, V) f32,
-        serving caches).  Attention caches hold ``pad_to`` slots (default
-        S), or ``min(pad_to, window)`` for windowed layers."""
-        x = self._embed(tokens)
+    def prefill(self, tokens=None, positions=None, embeds=None,
+                enc_embeds=None, pad_to: Optional[int] = None):
+        """Run the prompt (inputs as :meth:`forward_aux` takes them);
+        return (last-token logits (B, V) f32, serving caches).  Attention
+        caches hold ``pad_to`` slots (default S), or ``min(pad_to,
+        window)`` for windowed layers; an encoder-decoder's also hold each
+        layer's cross (k, v) as ``"b{i}_x"``.  The MoE routes at its
+        serving capacity."""
+        x = self._inputs(tokens, embeds)
         s = x.shape[1]
-        x, caches = self._run(x, self._positions(x), "prefill")
+        enc_out = self._encoded(enc_embeds)
+        x, caches, _ = self._run(x, self._positions(x, positions), "prefill",
+                                 enc_out=enc_out)
         # only the last position's logits: the (B, S, V) head is waste
         x = rms_norm(x[:, -1:], self.final_norm, self.cfg.norm_eps)
         logits = self._logits(x)[:, -1]
@@ -331,15 +465,19 @@ class Model(nn.Module):
                         k, v = block_caches[name]
                         block_caches[name] = (_grow(k, target),
                                               _grow(v, target))
+                    if enc_out is not None:
+                        block_caches[f"{name}_x"] = self._cross_kv(layer,
+                                                                   enc_out)
         return logits, caches
 
     @torch.no_grad()
     def decode_step(self, token, caches, cur_index):
         """One decode step.  token (B,) ints; ``cur_index`` an int or a
         (B,) tensor of positions.  Returns (logits (B, V) f32, caches);
-        attention caches are updated in place."""
+        attention caches are updated in place, cross (k, v) passed
+        through."""
         x = self._embed(torch.as_tensor(token)[:, None])
-        x, caches = self._run(x, None, "decode", caches, cur_index)
+        x, caches, _ = self._run(x, None, "decode", caches, cur_index)
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return self._logits(x)[:, 0], caches
 

@@ -13,8 +13,10 @@ pods share it), and a backward that recomputes a superblock (``remat``)
 recomputes it from the same tensors.  Passing the model's own
 ``dict(model.named_parameters())`` binds nothing new.
 
-The batch is a dict of arrays or tensors (``tokens``, ``labels``,
-optionally ``mask``); the step moves it to the model's device.
+The batch is a dict of arrays or tensors (``tokens`` or ``embeds``,
+``labels``, optionally ``mask``, ``positions`` and, for an
+encoder-decoder, ``enc_embeds``); the step moves it to the model's
+device.  The loss adds ``aux_coef`` times the model's MoE balance loss.
 Microbatching splits its leading axis and sums the gradients in f32,
 scaled by ``1 / microbatches``, as the JAX step's scan does.  The
 parameters and moments are updated in place (``adamw_update``); the
@@ -70,11 +72,14 @@ def _on_device(batch, device) -> Dict[str, torch.Tensor]:
             if v is not None}
 
 
+def _model_inputs(batch):
+    return {k: batch.get(k) for k in ("tokens", "positions", "embeds",
+                                      "enc_embeds")}
+
+
 def _loss(model, batch, aux_coef):
-    logits = model(batch["tokens"])
+    logits, aux = model.forward_aux(**_model_inputs(batch))
     ce = cross_entropy(logits, batch["labels"], batch.get("mask"))
-    # the MoE balance loss is JAX's only aux; the ported families have none
-    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
     return ce + aux_coef * aux, {"ce": ce, "aux": aux}
 
 
@@ -155,7 +160,7 @@ def make_train_step(model, opt_cfg: AdamWConfig, microbatches: int = 1,
 def make_prefill_step(model):
     def prefill_step(params, batch, pad_to: Optional[int] = None):
         with bound(model, params):
-            return model.prefill(batch["tokens"], pad_to=pad_to)
+            return model.prefill(**_model_inputs(batch), pad_to=pad_to)
     return prefill_step
 
 

@@ -63,9 +63,15 @@ def test_config_copy_matches_reference(name):
 
 
 def test_other_families_and_missing_card_raise():
-    for name in ("qwen3-moe-235b-a22b", "whisper-small", "qwen2-vl-72b"):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            Model(get_arch(name).smoke(), device="cpu")
+    """The MoE, encoder-decoder and M-RoPE families build (their parity
+    with the JAX package: ``test_torch_{moe,encdec,mrope}.py``); without
+    a card the default device raises."""
+    for name, part in (("qwen3-moe-235b-a22b", "stacks.0.0.b0.moe.router"),
+                       ("grok-1-314b", "stacks.0.0.b0.moe.w_down"),
+                       ("whisper-small", "enc_stack.0.b0.attn.wq"),
+                       ("qwen2-vl-72b", "stacks.0.0.b0.mlp.w_up")):
+        model = Model(get_arch(name).smoke(), device="cpu")
+        assert part in dict(model.named_parameters()), name
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; this checks its absence")
     with pytest.raises(DeviceUnavailableError, match="device='cpu'"):
