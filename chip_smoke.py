@@ -194,10 +194,29 @@ non-zero:
  26. whisper — whisper-small at full size (12 + 12 layers, 1,500 frames
      of enc_embeds): a prefill of 4 requests and 16 decode steps, then 4
      AdamW steps at batch 8 x 448 tokens; phases 23-26 check that no LM
-     kernel ran (none sits on these families' paths).
+     kernel ran (none sits on these families' paths);
+ 27. engine — the tensorized round engine (``core/engine``) at
+     benchmarks/bench_engine.py's largest instance (N=10,000, K=8, 64
+     broadcasts, 24 link additions and removals, 64 rounds): the card,
+     the CPU and the sharded runner with one rank byte-equal, a clean
+     ``analyze``; then its schedule at N=2^20 on the card: wall,
+     cell-rounds/s, peak memory, no violation, nothing missing;
+ 28. dist — on a one-card (1, 1) ``DeviceMesh`` over NCCL:
+     recurrentgemma-9b's smoke config at float32 through
+     ``launch.dryrun.build_cell`` (DTensor parameters, ZeRO-1 moments)
+     against the plain step on the CPU (loss 2e-5, gradients 1e-4 of
+     each leaf's largest), 4 + 4 rglru_scan launches; recurrentgemma-9b
+     at its published width with one superblock (3 layers), two DTensor
+     train steps on 1 x 2,048 tokens built on the model's own tensors,
+     the first's loss against the plain step's, step ms and peak
+     memory; the GPipe pipeline with one stage;
+ 29. dryrun — ``python -m repro_torch.launch.dryrun`` of qwen3-8b x
+     train_4k on the (16, 16) production mesh (a fake group of 256
+     ranks, meta tensors), started after the build in a process of its
+     own beside the card phases, its record printed.
 
 Then the kernels line (all eleven kernels; launches summed over every
-main-path phase, 17 to 22 included), the card's name and power
+main-path phase, 17 to 22 and 28 included), the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Needs
 one CUDA card; exits non-zero without one.
 
@@ -206,8 +225,12 @@ one CUDA card; exits non-zero without one.
 runs only the multi-card check instead: phases 8, 9 and 10's
 configurations at one rank in this process and then over 2 and over the
 given number of ranks, which ``repro_torch.api.run`` starts itself
-(NCCL, one card a rank), each byte-identical to the one-rank run.  It
-needs that many cards.
+(NCCL, one card a rank), each byte-identical to the one-rank run; then
+phase 30: the round engine's sharded runner over 2 and N ranks
+byte-equal to one rank, and over N ranks the recurrentgemma-9b smoke
+cell on a (2, N / 2) mesh against the one-card plain step and the
+pipeline with N stages against the sequential stack.  It needs that
+many cards.
 
     python3 chip_smoke.py --ab DIR
 
@@ -224,6 +247,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -267,6 +291,7 @@ def main(argv=None) -> int:
                   file=sys.stderr)
             return 2
         ranks_phase(torch, np, int(argv[1]))
+        dist_ranks_phase(torch, np, int(argv[1]))
         _finish(torch)
         return 0
 
@@ -286,6 +311,22 @@ def main(argv=None) -> int:
         lib_path.relative_to(ROOT)), ptxas=[
         line.strip() for line in log
         if "registers" in line or "spill" in line])
+    # -- 29, started: the dry-run traces on the host beside the rest ---- #
+    import tempfile
+    dry_dir = tempfile.mkdtemp()
+    dry_started = time.perf_counter()
+    dry = start_dryrun(dry_dir)
+    try:
+        return _card_phases(torch, np, dev, dry, dry_dir, dry_started)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.communicate()
+        shutil.rmtree(dry_dir, ignore_errors=True)
+
+
+def _card_phases(torch, np, dev, dry, dry_dir, dry_started) -> int:
+    """Phases 2-28 and 29's record, then the kernels line."""
 
     # -- 2. kernels against their plain versions ---------------------- #
     check_small(torch, np, dev)
@@ -351,6 +392,14 @@ def main(argv=None) -> int:
     # -- 23-26. the MoE, encoder-decoder and M-RoPE families ----------- #
     # (no LM kernel on their paths; each phase checks that none ran)
     family_phases(torch, np)
+    # -- 27-29. the round engine, the DTensor cell and the dry-run ----- #
+    engine_phase(torch, np)
+    extra = dist_phase(torch, np)
+    for e in entries:
+        e["launches"] += extra.get(e["name"], 0)
+        if e["name"] == "rglru_scan":
+            e["backward"]["launches"] += extra.get("rglru_scan_bwd", 0)
+    dryrun_phase(dry, dry_dir, dry_started)
 
     # not measured here: the card ms of the earlier designs of five
     # kernels, copied from PERF.md's kernel table, for the eye beside
@@ -3997,6 +4046,449 @@ def family_phases(torch, np):
     whisper_phase(torch, np)
     gc.collect()
     torch.cuda.empty_cache()
+
+
+
+# --------------------------------------------------------------------- #
+# Phases 27-30: the tensorized round engine, the DTensor train cell, the
+# GPipe pipeline and the dry-run
+# --------------------------------------------------------------------- #
+# benchmarks/bench_engine.py's instance (random_instance seed 5, k 8, 64
+# broadcasts, 24 link additions, 24 removals, 64 rounds) at its largest
+# N, and its schedule at N = 2^20
+ENGINE_N, ENGINE_SCALE_N, ENGINE_SEED = 10_000, 1 << 20, 5
+ENGINE_SCHEDULE = dict(k=8, m_app=64, n_adds=24, n_rms=24, rounds=64,
+                       mode="pc")
+DIST_ARCH = "recurrentgemma-9b"
+DIST_SMOKE_BATCH, DIST_SMOKE_SEQ = 4, 64
+DIST_FULL_LAYERS, DIST_FULL_SEQ = 3, 2048
+PIPE_M, PIPE_B, PIPE_D = 6, 8, 16
+DRYRUN_CELL = ("qwen3-8b", "train_4k")
+DRYRUN_TIMEOUT = 900
+
+
+def _whole(t):
+    """A DTensor's full value (other tensors as they are)."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _engine_instance(np, seed: int, n: int):
+    """``random_instance``'s structure at any N without its per-row
+    Python loop: a ring in slot 0, k - 2 random targets a row (never the
+    row itself; repeats allowed), the last slot free, delays 1-3, and
+    its schedule (broadcasts, link additions on the free slot by
+    distinct processes at distinct rounds, removals off the ring)."""
+    from repro_torch.core.engine import EngineConfig, Schedule
+
+    k, rounds, max_delay = (ENGINE_SCHEDULE["k"], ENGINE_SCHEDULE["rounds"],
+                            3)
+    m_app, n_adds, n_rms = (ENGINE_SCHEDULE[key] for key in
+                            ("m_app", "n_adds", "n_rms"))
+    rng = np.random.default_rng(seed)
+    rows = np.arange(n)
+    adj0 = np.full((n, k), -1, np.int64)
+    adj0[:, 0] = (rows + 1) % n
+    adj0[:, 1:k - 1] = (rows[:, None] + rng.integers(
+        1, n, size=(n, k - 2))) % n
+    delay0 = rng.integers(1, max_delay + 1, size=(n, k))
+    last = max(1, rounds - 3 * max_delay - 6)
+    i32 = np.int32
+    sched = Schedule(
+        np.sort(rng.integers(0, last, size=m_app)).astype(i32),
+        rng.integers(0, n, size=m_app).astype(i32),
+        np.sort(rng.choice(last, size=n_adds, replace=False)).astype(i32),
+        rng.choice(n, size=n_adds, replace=False).astype(i32),
+        np.full(n_adds, k - 1, i32),
+        rng.integers(0, n, size=n_adds).astype(i32),
+        rng.integers(1, max_delay + 1, size=n_adds).astype(i32),
+        np.sort(rng.integers(0, last, size=n_rms)).astype(i32),
+        rng.integers(0, n, size=n_rms).astype(i32),
+        rng.integers(1, k - 1, size=n_rms).astype(i32))
+    # an added link never points at its own process
+    sched.add_q[:] = np.where(sched.add_q == sched.add_p,
+                              (sched.add_q + 1) % n, sched.add_q)
+    return EngineConfig(n=n, k=k, rounds=rounds, mode="pc"), sched, adj0, \
+        delay0
+
+
+def _on_card(torch, fn):
+    """(fn(), seconds) between card syncs."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def engine_phase(torch, np):
+    """Phase 27: the tensorized round engine (``core/engine``, plain
+    tensor operations, no kernel).  At benchmarks/bench_engine.py's
+    largest instance (N = 10,000): ``run_engine`` on the card, on the
+    CPU and ``run_engine_sharded`` with one rank in this process, each
+    ``delivered`` byte-equal, ``analyze`` clean; at N = 2^20 with the same
+    schedule: the card run's wall, cell-rounds/s (N x M x rounds a
+    second, bench_engine's unit) and peak memory, ``analyze`` with no
+    violation and nothing missing."""
+    from repro_torch.core.engine import analyze, random_instance, run_engine
+    from repro_torch.core.engine.sharded import run_engine_sharded
+
+    inst = random_instance(ENGINE_SEED, n=ENGINE_N, **ENGINE_SCHEDULE)
+    cfg, sched = inst[0], inst[1]
+    card, card_s = _on_card(torch, lambda: run_engine(*inst))
+    t0 = time.perf_counter()
+    cpu = run_engine(*inst, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    np.testing.assert_array_equal(card, cpu)
+    one, one_s = _on_card(torch, lambda: run_engine_sharded(*inst))
+    np.testing.assert_array_equal(one, cpu)
+    rep = analyze(card, sched)
+    assert rep["violations"] == 0 and rep["missing"] == 0, rep
+    cells = cfg.n * sched.m_total * cfg.rounds
+    emit("engine", n=cfg.n, k=cfg.k, m_total=sched.m_total,
+         rounds=cfg.rounds, byte_equal_card_cpu=True,
+         byte_equal_sharded_one_rank=True, card_seconds=card_s,
+         cpu_seconds=cpu_s, sharded_one_rank_seconds=one_s,
+         card_cell_rounds_per_sec=cells / card_s,
+         cpu_cell_rounds_per_sec=cells / cpu_s, **rep)
+    big = _engine_instance(np, ENGINE_SEED, ENGINE_SCALE_N)
+    torch.cuda.reset_peak_memory_stats()
+    d, wall = _on_card(torch, lambda: run_engine(*big))
+    rep = analyze(d, big[1])
+    assert rep["violations"] == 0 and rep["missing"] == 0, rep
+    emit("engine_scale", n=big[0].n, k=big[0].k, m_total=big[1].m_total,
+         rounds=big[0].rounds, card_seconds=wall,
+         card_cell_rounds_per_sec=big[0].n * big[1].m_total * big[0].rounds
+         / wall, peak_memory_bytes=torch.cuda.max_memory_allocated(), **rep)
+
+
+def _pipeline_inputs(np, stages: int):
+    rng = np.random.default_rng(0)
+    d = PIPE_D
+    return dict(w=(rng.standard_normal((stages, d, d)) * d ** -0.5).astype(
+                    np.float32),
+                b=(rng.standard_normal((stages, d)) * 0.1).astype(np.float32),
+                mb=rng.standard_normal((PIPE_M, PIPE_B, d)).astype(
+                    np.float32))
+
+
+def _pipeline_check(torch, np, mesh, device):
+    """The GPipe pipeline of tanh(x @ w + b) stages over the mesh's
+    "stage" ranks against the sequential stack: outputs within rtol
+    1e-5, the gradients of mean(out ** 2) (summed over the stages)
+    within rtol 1e-4, as JAX's test holds its own.  Returns the errors."""
+    import torch.distributed as dist
+
+    from repro_torch.sharding.pipeline import pipeline
+
+    inp = _pipeline_inputs(np, mesh.size())
+
+    def params():
+        return {k: torch.tensor(inp[k], device=device, requires_grad=True)
+                for k in ("w", "b")}
+
+    def stage(p, x):
+        return torch.tanh(x @ p["w"] + p["b"])
+
+    mb = torch.tensor(inp["mb"], device=device)
+    p = params()
+    out = pipeline(stage, mesh)(p, mb)
+    (out ** 2).mean().backward()
+    grads = {}
+    for k, v in p.items():
+        g = v.grad.clone()
+        dist.all_reduce(g, group=mesh.get_group("stage"))
+        grads[k] = g
+    q = params()
+    x = mb
+    for s in range(mesh.size()):
+        x = stage({k: v[s] for k, v in q.items()}, x)
+    (x ** 2).mean().backward()
+    torch.testing.assert_close(out, x, rtol=1e-5, atol=1e-5)
+    for k in grads:
+        torch.testing.assert_close(grads[k], q[k].grad, rtol=1e-4, atol=1e-5)
+    return dict(out=float((out - x).detach().abs().max()),
+                grads=max(float((grads[k] - q[k].grad).abs().max())
+                          for k in grads))
+
+
+def _dist_smoke(torch, np):
+    """The recurrentgemma-9b smoke config at float32 and one batch: the
+    CPU model and its weights (numpy), to be loaded on the card."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import build_model
+
+    cfg = replace(get_arch(DIST_ARCH).smoke(), compute_dtype="float32",
+                  param_dtype="float32")
+    model = build_model(cfg, device="cpu", seed=0)
+    batch = SyntheticLM(DataConfig(cfg.vocab_size, DIST_SMOKE_SEQ,
+                                   DIST_SMOKE_BATCH, seed=5)).batch(0)
+    return cfg, model, batch
+
+
+def _cell_on_card(torch, np, cfg, weights, batch, mesh):
+    """The smoke cell through ``build_cell`` on ``mesh`` from the CPU
+    model's weights: the loss and gradients of the step's grad function
+    (full values, on the CPU) and its kernel launches, then one train
+    step.  Returns (loss, grads, launches of the grad function, step
+    metrics)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.dryrun import build_cell
+    from repro_torch.models import build_model
+    from repro_torch.sharding.policy import use_mesh
+    from repro_torch.training.step import make_grad_fn
+
+    model = build_model(cfg, seed=0)
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in weights.items()})
+    tb = {k: torch.as_tensor(v, device=model.device)
+          for k, v in batch.items()}
+    b, s = tb["labels"].shape
+    fn, args, _, _ = build_cell(cfg, ShapeSpec("dist_smoke", s, b, "train"),
+                                mesh, remat="none", model=model, batch=tb)
+    params, _, placed = args
+    torch.cuda.synchronize()
+    reset_launches()
+    with use_mesh(mesh), implicit_replication():
+        (loss, _), grads = make_grad_fn(model)(params, placed)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    grads = {k: _whole(g).cpu() for k, g in grads.items()}
+    _, _, met = fn(*args)
+    return float(_whole(loss)), grads, launches, met
+
+
+def _cell_close(torch, np, loss, grads, want_loss, want):
+    """Loss within 2e-5 and every gradient within 1e-4 of its leaf's
+    largest (the training parity's tolerances); returns the worst
+    gradient error as a share of its leaf's largest."""
+    np.testing.assert_allclose(loss, want_loss, rtol=TRAIN_LOSS_RTOL)
+    worst = 0.0
+    for k, w in want.items():
+        scale = float(w.abs().max())
+        err = float((grads[k] - w).abs().max())
+        assert err <= TRAIN_GRAD_TOL * scale, (k, err, scale)
+        worst = max(worst, err / scale if scale else 0.0)
+    return worst
+
+
+def dist_phase(torch, np):
+    """Phase 28: the sharded LM path on one card, a (1, 1) ("data",
+    "model") ``DeviceMesh`` over NCCL.  (a) The recurrentgemma-9b smoke
+    config at float32 through ``launch.dryrun.build_cell`` (DTensor
+    parameters, ZeRO-1 moments, the batch over "data"), from the CPU
+    model's weights: the loss within 2e-5 and every gradient within 1e-4
+    of its leaf's largest against the plain one-device step on the CPU,
+    with rglru_scan and rglru_scan_bwd launched (the RG-LRU layers run
+    the kernel on their local shards), then one train step.  (b)
+    recurrentgemma-9b at its published width with one superblock (3
+    layers: rec, rec, attn; f32 parameters, bf16 compute), 1 x 2,048
+    tokens: two DTensor train steps, timed (the first plans DTensor's
+    layouts), with their peak memory, built
+    on the model's own tensors (a one-rank mesh wraps them without a
+    copy), its loss against the plain step's loss on the same tensors
+    (bf16 tolerance).  (c) the pipeline with one stage on the card.
+    Returns the launches of (a) and (b)."""
+    from dataclasses import replace
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.dryrun import build_cell
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.training.step import make_grad_fn, make_loss_fn
+
+    mesh = make_local_mesh(1, 1)
+    launches = {}
+    try:
+        cfg, cpu_model, batch = _dist_smoke(torch, np)
+        (want_loss, _), want = make_grad_fn(cpu_model)(
+            dict(cpu_model.named_parameters()), batch)
+        weights = {k: v.detach().numpy()
+                   for k, v in cpu_model.state_dict().items()}
+        loss, grads, counts, met = _cell_on_card(torch, np, cfg, weights,
+                                                 batch, mesh)
+        worst = _cell_close(torch, np, loss, grads, float(want_loss), want)
+        rec = cfg.layer_kinds().count("rec")
+        assert counts.get("rglru_scan") == rec, counts
+        assert counts.get("rglru_scan_bwd") == rec, counts
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        emit("dist_smoke", arch=cfg.name, mesh="1x1", batch=DIST_SMOKE_BATCH,
+             seq_len=DIST_SMOKE_SEQ, loss=loss, cpu_loss=float(want_loss),
+             worst_grad_error_share=worst, step_loss=float(_whole(
+                 met["loss"])), launches=counts)
+
+        cfg = replace(get_arch(DIST_ARCH), num_layers=DIST_FULL_LAYERS)
+        model, init_s = _fresh_model(torch, cfg)
+        batch = SyntheticLM(DataConfig(cfg.vocab_size, DIST_FULL_SEQ, 1,
+                                       seed=0)).batch(0)
+        own = dict(model.named_parameters())
+        with torch.no_grad():
+            plain = float(make_loss_fn(model)(own, batch)[0])
+        tb = {k: torch.as_tensor(v, device=model.device)
+              for k, v in batch.items()}
+        fn, args, _, _ = build_cell(
+            cfg, ShapeSpec("dist_full", DIST_FULL_SEQ, 1, "train"), mesh,
+            remat="none", model=model, batch=tb)
+        assert all(args[0][k].to_local().data_ptr() == p.data_ptr()
+                   for k, p in own.items()), "the cell copied a parameter"
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        # the first step plans DTensor's layouts, the second reuses them
+        (_, _, met), ms = _on_card(torch, lambda: fn(*args))
+        (_, _, met2), ms2 = _on_card(torch, lambda: fn(*args))
+        counts = {k: v for k, v in LAUNCHES.items() if v}
+        loss = float(_whole(met["loss"]))
+        rel = abs(loss - plain) / abs(plain)
+        assert rel <= LM_TOL["bfloat16"], (loss, plain)
+        assert np.isfinite(float(_whole(met2["loss"])))
+        rec = cfg.layer_kinds().count("rec")
+        assert counts.get("rglru_scan") == 2 * rec, counts
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        emit("dist_full", arch=cfg.name, **_sizes(cfg, model), mesh="1x1",
+             batch=1, seq_len=DIST_FULL_SEQ, init_seconds=init_s,
+             step_ms=[ms * 1e3, ms2 * 1e3], loss=loss, plain_loss=plain,
+             loss_rel_diff=rel,
+             peak_memory_bytes=torch.cuda.max_memory_allocated(),
+             launches=counts)
+        del model, own, args, fn
+        pipe = _pipeline_check(torch, np, init_device_mesh(
+            CARD, (1,), mesh_dim_names=("stage",)), torch.device(CARD))
+        emit("dist_pipeline", stages=1, microbatches=PIPE_M, **pipe)
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def start_dryrun(out_dir: str):
+    """Phase 29, started: ``python -m repro_torch.launch.dryrun`` on
+    DRYRUN_CELL at the (16, 16) production mesh in a process of its own
+    (its fake process group of 256 ranks must not meet this process's
+    groups; the card hidden from it), writing its record to
+    ``out_dir``."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    arch, shape = DRYRUN_CELL
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--out", os.path.join(out_dir, "dryrun.json")],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def dryrun_phase(proc, out_dir: str, started: float) -> None:
+    """Phase 29: the dry-run's record (estimates for a production H100
+    cluster, traced on meta tensors on the host; no card involved)."""
+    try:
+        out, err = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, (out + err)[-3000:]
+    with open(os.path.join(out_dir, "dryrun.json")) as fh:
+        rec, = json.load(fh)
+    emit("dryrun", wall_seconds_since_start=time.perf_counter() - started,
+         **rec)
+
+
+# --ranks: the engine, the cell and the pipeline over NCCL ranks
+def _dist_rank(rank, world, store, args, out):
+    import datetime
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.core.engine.sharded import run_engine_sharded
+    from repro_torch.launch.mesh import make_local_mesh
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(minutes=5))
+    try:
+        inst, cell = args
+        res = {"engine": run_engine_sharded(*inst)}
+        if cell is not None:
+            cfg, weights, batch = cell
+            mesh = make_local_mesh(2, world // 2)
+            loss, grads, counts, _ = _cell_on_card(torch, np, cfg, weights,
+                                                   batch, mesh)
+            res["cell"] = (loss, grads, counts)
+            from torch.distributed.device_mesh import init_device_mesh
+            res["pipeline"] = _pipeline_check(torch, np, init_device_mesh(
+                "cuda", (world,), mesh_dim_names=("stage",)),
+                torch.device("cuda", rank))
+        if rank == 0:
+            with open(out, "wb") as fh:
+                pickle.dump(res, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_ranks_phase(torch, np, most: int) -> None:
+    """Phase 30 (``--ranks N``): the sharded round engine over 2 and N
+    NCCL ranks (one card a rank) byte-equal to one rank in this process;
+    over N ranks also the recurrentgemma-9b smoke cell on a (2, N / 2)
+    mesh against the plain one-device step on this process's card, and
+    the pipeline with N stages against the sequential stack."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.core.engine import random_instance
+    from repro_torch.core.engine.sharded import run_engine_sharded
+    from repro_torch.training.step import make_grad_fn
+
+    inst = random_instance(ENGINE_SEED, n=ENGINE_N, **ENGINE_SCHEDULE)
+    one = run_engine_sharded(*inst)
+    cfg, cpu_model, batch = _dist_smoke(torch, np)
+    weights = {k: v.detach().numpy()
+               for k, v in cpu_model.state_dict().items()}
+    card = cpu_model.to(CARD)
+    (want_loss, _), want = make_grad_fn(card)(
+        dict(card.named_parameters()), batch)
+    want = {k: g.cpu() for k, g in want.items()}
+    for world in sorted({2, most}):
+        cell = (cfg, weights, batch) if world == most and most % 2 == 0 \
+            else None
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "out.pkl")
+            t0 = time.perf_counter()
+            mp.start_processes(_dist_rank, nprocs=world, join=True,
+                               start_method="spawn", args=(
+                                   world, os.path.join(tmp, "store"),
+                                   (inst, cell), out))
+            wall = time.perf_counter() - t0
+            with open(out, "rb") as fh:
+                res = pickle.load(fh)
+        np.testing.assert_array_equal(res["engine"][:inst[0].n], one)
+        emit("dist_ranks_engine", world=world, n=inst[0].n,
+             byte_equal_to_one_rank=True, launch_and_run_seconds=wall)
+        if cell is not None:
+            loss, grads, counts = res["cell"]
+            worst = _cell_close(torch, np, loss, grads, float(want_loss),
+                                want)
+            assert counts.get("rglru_scan"), counts
+            emit("dist_ranks_cell", world=world, mesh=f"2x{world // 2}",
+                 arch=cfg.name, loss=loss, one_card_loss=float(want_loss),
+                 worst_grad_error_share=worst, launches_rank0=counts)
+            emit("dist_ranks_pipeline", stages=world, **res["pipeline"])
 
 
 if __name__ == "__main__":

@@ -4,7 +4,10 @@ to a multiple of ``block_q``, k and v to one of ``block_k``, the padded
 keys masked by the true length and the padded query rows dropped.  The
 kernel walks its own 64-row tiles, so the block sizes set the padding
 only.  The backward recomputes through the plain version, as the JAX
-op's ``custom_vjp`` does; no model calls the op."""
+op's ``custom_vjp`` does; no model calls the op.  On ``meta`` tensors
+the launch and its backward only allocate (2 B H Sq Skv D flops for
+each of the two products, causal or not, and twice that a backward);
+a DTensor runs on its local shards, sharded over the batch at most."""
 
 from __future__ import annotations
 
@@ -26,6 +29,11 @@ def launch_flash_attention(q, k, v, o, causal: bool, seq_kv: int):
         sq, skv, d, int(seq_kv), int(bool(causal)),
         common.DTYPE_CODE[q.dtype], float(d ** -0.5),
         common.stream(q.device)))
+
+
+def _flops(q, k) -> int:
+    b, h, sq, d = q.shape
+    return 4 * b * h * sq * k.shape[2] * d
 
 
 def _pad_to(x, mult: int):
@@ -56,6 +64,8 @@ def _forward(q, k, v, causal, block_q, block_k):
     qp, kp, vp = _pad_to(q, block_q), _pad_to(k, block_k), _pad_to(v, block_k)
     if not common.route(dev):
         return flash_attention_ref(qp, kp, vp, causal, seq_kv=skv)[:, :, :sq]
+    if dev.type == "meta":
+        return common.meta_out(q, list(q.shape), q.dtype, _flops(q, k))
     o = torch.empty_like(qp)
     launch_flash_attention(qp, kp, vp, o, causal, skv)
     common.LAUNCHES["flash_attention"] += 1
@@ -72,6 +82,12 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
+        if g.device.type == "meta":
+            return (common.meta_out(q, list(q.shape), q.dtype,
+                                    2 * _flops(q, k)),
+                    common.meta_out(k, list(k.shape), k.dtype, 0),
+                    common.meta_out(v, list(v.shape), v.dtype, 0),
+                    None, None, None)
         with torch.enable_grad():
             args = [t.detach().requires_grad_() for t in (q, k, v)]
             out = flash_attention_ref(*args, causal=ctx.causal)
@@ -84,4 +100,11 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int = 128,
     """q (B, H, Sq, D); k, v (B, KV, Skv, D), float32 or bfloat16, one
     type, D <= 256 -> (B, H, Sq, D) in q's type.  The kernel on CUDA
     tensors, the plain version on CPU tensors; differentiable."""
+    if common.is_dtensor(q):
+        bd = {0: 0}
+        return common.local_call(
+            lambda q_, k_, v_: flash_attention(
+                q_.contiguous(), k_.contiguous(), v_.contiguous(), causal,
+                block_q, block_k),
+            (q, k, v), (bd, bd, bd), bd)
     return _FlashAttention.apply(q, k, v, causal, block_q, block_k)

@@ -16,7 +16,14 @@ so flip(G) = scan(c, e) with c = (0, a_{S-1}, ..., a_1) and e = flip(dh)
 da = G h_prev (h_prev = (h0 or 0, h_0, ..., h_{S-2})) and dh0 = a_0 G_0.
 The reversed launch runs in float32 on the card (counted under
 ``rglru_scan_bwd``) and through the plain version on the CPU, so both
-take one formula."""
+take one formula.
+
+On ``meta`` tensors each launch only allocates its output, counted by
+the dry-run as the roofline's RG-LRU term: 8 B S W flops a forward (the
+gates and the scan, ``launch/roofline.py``), twice that a backward.  A
+DTensor reaches the kernel as its local shard with the batch and width
+sharded at most: the recurrence runs along S, which is gathered first.
+"""
 
 from __future__ import annotations
 
@@ -70,6 +77,10 @@ def _scan(a, bx, h0, key: str):
     tensor, the plain version on a CPU tensor."""
     if not common.route(a.device):
         return rglru_scan_ref(a, bx, h0)[0]
+    if a.device.type == "meta":
+        b, s, w = a.shape
+        per = 8 * b * s * w * (2 if key == "rglru_scan_bwd" else 1)
+        return common.meta_out(a, list(a.shape), torch.float32, per)
     h = torch.empty(a.shape, dtype=torch.float32, device=a.device)
     if h.numel():
         launch_rglru_scan(a, bx, h0, h)
@@ -120,7 +131,17 @@ def rglru_scan(a: torch.Tensor, bx: torch.Tensor,
     one type; h0 optional (B, W), float32.  Returns (h (B, S, W) float32,
     h_last (B, W)).  The kernel on a CUDA tensor, the plain version on a
     CPU tensor; differentiable in a, bx and h0 (the backward is the
-    reversed scan, :func:`rglru_scan_backward`)."""
+    reversed scan, :func:`rglru_scan_backward`).  DTensors run on their
+    local shards, sharded over B and W at most."""
+    if common.is_dtensor(a):
+        bw = {0: 0, 2: 2}
+        h = common.local_call(
+            lambda a_, bx_, h0_: rglru_scan(
+                a_.contiguous(), bx_.contiguous(),
+                None if h0_ is None else h0_.contiguous())[0],
+            (a, bx, h0), (bw, bw, {0: 0, 2: 1} if h0 is not None else None),
+            bw)
+        return h, h[:, -1]
     if a.dim() != 3:
         raise ValueError(f"a must be (B, S, W), got {tuple(a.shape)}")
     dev = a.device

@@ -17,7 +17,14 @@ backward does not reduce to this forward kernel (dB and dC contract dy
 with x per head, which its shared (B, S, N) Bm and Cm cannot express):
 a backward kernel of its own is the later speed-up of this path
 (ROADMAP.md, queue 1, item 16).  On the CPU the plain version is
-ordinary differentiable torch code."""
+ordinary differentiable torch code.
+
+On ``meta`` tensors the launch, and its backward, only allocate, counted
+by the dry-run as the roofline's SSD term, 2 B S (q N + H q P + 2 H N P)
+flops a forward and twice that a backward.  A DTensor reaches the
+kernel as its local shard with the batch and heads sharded at most (B
+and C are shared by the heads, so they keep the batch sharding only).
+"""
 
 from __future__ import annotations
 
@@ -53,11 +60,22 @@ def launch_ssd_scan(xbar, a_log, Bm, Cm, y, hout, q: int):
         common.DTYPE_CODE[xbar.dtype], common.stream(xbar.device)))
 
 
+def _flops(xbar, n: int, chunk: int) -> int:
+    """The roofline's forward flops of one SSD layer on these inputs."""
+    b, s, h, p = xbar.shape
+    q = chunk_len(s, chunk)
+    return 2 * b * s * (q * n + h * q * p + 2 * h * n * p)
+
+
 def _scan(xbar, a_log, Bm, Cm, chunk: int):
     """The kernel on checked CUDA tensors: pad S to the chunk, launch
-    (counted), drop the padded rows."""
+    (counted), drop the padded rows; on meta tensors the outputs alone."""
     b, s, h, p = xbar.shape
     n = Bm.shape[-1]
+    if xbar.device.type == "meta":
+        return (common.meta_out(xbar, [b, s, h, p], xbar.dtype,
+                                _flops(xbar, n, chunk)),
+                common.meta_out(xbar, [b, h, n, p], torch.float32, 0))
     q = chunk_len(s, chunk)
     if s % q:
         pad = q - s % q
@@ -82,6 +100,14 @@ class _SSDScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dh):
+        saved = ctx.saved_tensors
+        if dy.device.type == "meta":
+            flops = [2 * _flops(saved[0], saved[2].shape[-1], ctx.chunk)]
+            return (*(common.meta_out(t, list(t.shape), t.dtype,
+                                      flops.pop() if flops else 0)
+                      if need else None
+                      for t, need in zip(saved, ctx.needs_input_grad)),
+                    None)
         # the plain version recomputed on the same tensors and
         # differentiated (a backward kernel: ROADMAP.md, queue 1, item 16)
         with torch.enable_grad():
@@ -99,7 +125,15 @@ def ssd_chunk_scan(xbar, a_log, Bm, Cm, chunk: int = 128):
     (B,S,N) of xbar's type -> (y (B,S,H,P) of xbar's type, h_final
     (B,H,N,P) float32).  The kernel on CUDA tensors, the plain version on
     CPU tensors; differentiable (on the card the backward recomputes the
-    plain version)."""
+    plain version).  DTensors run on their local shards."""
+    if common.is_dtensor(xbar):
+        heads = {0: 0, 2: 2}
+        return common.local_call(
+            lambda x_, a_, b_, c_: ssd_chunk_scan(
+                x_.contiguous(), a_.contiguous(), b_.contiguous(),
+                c_.contiguous(), chunk),
+            (xbar, a_log, Bm, Cm), (heads, heads, {0: 0}, {0: 0}),
+            (heads, {0: 0, 2: 1}))
     if xbar.dim() != 4:
         raise ValueError(f"xbar must be (B, S, H, P), got "
                          f"{tuple(xbar.shape)}")

@@ -3,8 +3,9 @@
 The port of the JAX package's ``launch/train.py``, with its flags plus
 ``--device`` (the card by default, ``cpu`` on request).  Two modes:
 
-  * ``--mode spmd``   — synchronous training on one card (data
-    parallelism across cards waits for the sharding slice of the port);
+  * ``--mode spmd``   — synchronous training on one card, as the JAX
+    launcher trains on its default device (multi-card training is the
+    DTensor cell of ``launch.dryrun.build_cell``, as in JAX);
   * ``--mode gossip`` — multi-pod causal-gossip training (the paper's
     protocol as the cross-pod plane), simulated in-process: N pods, local
     AdamW + PC-broadcast outer updates, optional churn and compression;

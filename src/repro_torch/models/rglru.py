@@ -41,17 +41,22 @@ class RGLRU(nn.Module):
         d = cfg.d_model
         w = cfg.lru_width or d
         f32 = dict(dtype=torch.float32, device=device)
-        self.w_in = _param(init_dense(gen, (d, w), dtype, device))
-        self.w_gate = _param(init_dense(gen, (d, w), dtype, device))
-        self.w_out = _param(init_dense(gen, (w, d), dtype, device))
+        self.w_in = _param(init_dense(gen, (d, w), dtype, device),
+                           ("embed", "lru"))
+        self.w_gate = _param(init_dense(gen, (d, w), dtype, device),
+                             ("embed", "lru"))
+        self.w_out = _param(init_dense(gen, (w, d), dtype, device),
+                            ("lru", "embed"))
         self.conv_w = _param(init_dense(gen, (cfg.conv_width, w), dtype,
-                                        device, scale=cfg.conv_width ** -0.5))
-        self.conv_b = _param(torch.zeros(w, dtype=dtype, device=device))
-        self.lam = _param(torch.linspace(0.5, 4.0, w, **f32))
-        self.w_r = _param(torch.ones(w, **f32))
-        self.b_r = _param(torch.zeros(w, **f32))
-        self.w_i = _param(torch.ones(w, **f32))
-        self.b_i = _param(torch.zeros(w, **f32))
+                                        device, scale=cfg.conv_width ** -0.5),
+                             (None, "lru"))
+        self.conv_b = _param(torch.zeros(w, dtype=dtype, device=device),
+                             ("lru",))
+        self.lam = _param(torch.linspace(0.5, 4.0, w, **f32), ("lru",))
+        self.w_r = _param(torch.ones(w, **f32), ("lru",))
+        self.b_r = _param(torch.zeros(w, **f32), ("lru",))
+        self.w_i = _param(torch.ones(w, **f32), ("lru",))
+        self.b_i = _param(torch.zeros(w, **f32), ("lru",))
 
 
 def _gates(p: RGLRU, u: torch.Tensor):

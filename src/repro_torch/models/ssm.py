@@ -19,15 +19,22 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..kernels.ssd_scan.ops import ssd_chunk_scan
-from .layers import init_dense, rms_norm
+from .layers import init_dense, merge_dims, rms_norm, split_dim
 
 __all__ = ["SSM", "ssd_forward", "ssm_decode_step", "init_ssm_state"]
 
 
-def _param(t: torch.Tensor) -> nn.Parameter:
+def _param(t: torch.Tensor, axes) -> nn.Parameter:
     """A trainable parameter (the serving entry points run under
-    ``torch.no_grad``)."""
-    return nn.Parameter(t)
+    ``torch.no_grad``) that carries its logical axes, one name (or None)
+    a dimension, as the JAX package's ``init`` returns them beside the
+    params; ``repro_torch.sharding.policy`` maps them to mesh axes."""
+    if len(axes) != t.dim():
+        raise ValueError(f"{len(axes)} logical axes {axes} for a "
+                         f"{t.dim()}-d parameter")
+    p = nn.Parameter(t)
+    p.logical_axes = tuple(axes)
+    return p
 
 
 class SSM(nn.Module):
@@ -40,16 +47,19 @@ class SSM(nn.Module):
         w = cfg.conv_width
         f32 = dict(dtype=torch.float32, device=device)
         self.in_proj = _param(init_dense(gen, (d, 2 * di + 2 * n + h), dtype,
-                                         device))
+                                         device), ("embed", "ssm_in"))
         self.conv_w = _param(init_dense(gen, (w, di + 2 * n), dtype, device,
-                                        scale=w ** -0.5))
+                                        scale=w ** -0.5), (None, "ssm_conv"))
         self.conv_b = _param(torch.zeros(di + 2 * n, dtype=dtype,
-                                         device=device))
-        self.A_log = _param(torch.log(torch.linspace(1.0, 16.0, h, **f32)))
-        self.D = _param(torch.ones(h, **f32))
-        self.dt_bias = _param(torch.zeros(h, **f32))
-        self.norm = _param(torch.ones(di, dtype=dtype, device=device))
-        self.out_proj = _param(init_dense(gen, (di, d), dtype, device))
+                                         device=device), ("ssm_conv",))
+        self.A_log = _param(torch.log(torch.linspace(1.0, 16.0, h, **f32)),
+                            ("ssm_heads",))
+        self.D = _param(torch.ones(h, **f32), ("ssm_heads",))
+        self.dt_bias = _param(torch.zeros(h, **f32), ("ssm_heads",))
+        self.norm = _param(torch.ones(di, dtype=dtype, device=device),
+                           ("ssm_inner",))
+        self.out_proj = _param(init_dense(gen, (di, d), dtype, device),
+                               ("ssm_inner", "embed"))
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -92,12 +102,12 @@ def ssd_forward(p: SSM, cfg, x: torch.Tensor):
 
     dt = F.softplus(dt.float() + p.dt_bias)                      # (B,S,H)
     a_log = -torch.exp(p.A_log)[None, None, :] * dt              # (B,S,H)
-    xh = xc.reshape(b, s, h, pd)
+    xh = split_dim(xc, 2, (h, pd))
     xbar = xh * dt.to(cd)[..., None]
     y, hfin = ssd_chunk_scan(xbar, a_log, bm.contiguous(), cm.contiguous(),
                              chunk=cfg.ssm_chunk)
     y = y + xh * p.D.to(cd)[None, None, :, None]
-    y = y.reshape(b, s, di)
+    y = merge_dims(y, 2, 2)
     y = rms_norm(y * F.silu(z), p.norm, cfg.norm_eps)
     return y @ p.out_proj.to(cd), (conv_state, hfin)
 
@@ -134,7 +144,7 @@ def ssm_decode_step(p: SSM, cfg, x: torch.Tensor, state):
 
     dt = F.softplus(dt.float() + p.dt_bias)                      # (B,1,H)
     a = torch.exp(-torch.exp(p.A_log)[None, :] * dt[:, 0])       # (B,H)
-    xh = xc.reshape(b, h, pd)
+    xh = split_dim(xc[:, 0], 1, (h, pd))
     xbar = xh * dt[:, 0, :, None].to(cd)
     # h <- a h + B (x dt)^T ; y = C h + D x
     upd = torch.einsum("bn,bhp->bhnp", bm[:, 0], xbar)
@@ -142,6 +152,6 @@ def ssm_decode_step(p: SSM, cfg, x: torch.Tensor, state):
     y = torch.einsum("bn,bhnp->bhp", cm[:, 0].to(hstate.dtype),
                      hstate).to(cd)
     y = y + xh * p.D.to(cd)[None, :, None]
-    y = y.reshape(b, 1, di)
+    y = merge_dims(y, 1, 2)[:, None]
     y = rms_norm(y * F.silu(z), p.norm, cfg.norm_eps)
     return y @ p.out_proj.to(cd), (conv_state, hstate)

@@ -40,10 +40,19 @@ Training differentiates ``forward``.  ``remat`` recomputes each
 superblock's activations in the backward, as the JAX package's
 ``jax.checkpoint`` over the scan body does: ``"full"`` keeps nothing
 (``nothing_saveable``), ``"dots"`` keeps the matrix products' outputs
-(``dots_saveable``, through selective checkpointing).  The knobs
-``unroll`` and ``seq_shard`` wait for the sharding slice of the port
-(ROADMAP.md, queue 1, item 12; the superblock loop is a Python loop
-already).
+(``dots_saveable``, through selective checkpointing).
+
+Distribution: every parameter carries its logical axes
+(:meth:`Model.param_axes`), which ``repro_torch.sharding.policy`` maps to
+DTensor placements; bound to DTensor parameters (``training.step.bound``)
+the same code runs sharded.  ``seq_shard`` keeps the residual stream
+sequence-sharded over "model" between layers outside decode
+(Megatron-SP), with q/k/v re-gathered once before blockwise attention,
+at JAX's constrain sites; without an ambient mesh it changes nothing.
+JAX's ``unroll`` knob is not ported: it unrolls the layer scan so that
+XLA's cost analysis, which counts a scan body once, prices every layer;
+the superblock loop here is Python, so every layer is counted already
+and the knob would change nothing.
 """
 
 from __future__ import annotations
@@ -58,7 +67,7 @@ import torch.utils.checkpoint as ckpt
 
 from ..backend import resolve_device
 from .layers import (attention, decode_attention, decode_cross_attention,
-                     init_dense, mlp, rms_norm)
+                     embed_lookup, init_dense, mlp, rms_norm, split_dim)
 from .moe import MoE, moe_ffn
 from .rglru import RGLRU, rglru_decode_step, rglru_forward
 from .ssm import SSM, _param, ssd_forward, ssm_decode_step
@@ -81,23 +90,30 @@ class Attention(nn.Module):
     def __init__(self, cfg, dtype, device, gen):
         super().__init__()
         d, qd, kvd = cfg.d_model, cfg.attn_q_dim, cfg.attn_kv_dim
-        self.wq = _param(init_dense(gen, (d, qd), dtype, device))
-        self.wk = _param(init_dense(gen, (d, kvd), dtype, device))
-        self.wv = _param(init_dense(gen, (d, kvd), dtype, device))
-        self.wo = _param(init_dense(gen, (qd, d), dtype, device))
+        self.wq = _param(init_dense(gen, (d, qd), dtype, device),
+                         ("embed", "q_proj"))
+        self.wk = _param(init_dense(gen, (d, kvd), dtype, device),
+                         ("embed", "kv_proj"))
+        self.wv = _param(init_dense(gen, (d, kvd), dtype, device),
+                         ("embed", "kv_proj"))
+        self.wo = _param(init_dense(gen, (qd, d), dtype, device),
+                         ("q_proj", "embed"))
         if cfg.qk_norm:
             self.q_norm = _param(torch.ones(cfg.head_dim, dtype=dtype,
-                                            device=device))
+                                            device=device), ("head_dim",))
             self.k_norm = _param(torch.ones(cfg.head_dim, dtype=dtype,
-                                            device=device))
+                                            device=device), ("head_dim",))
 
 
 class MLP(nn.Module):
     def __init__(self, d, d_ff, dtype, device, gen):
         super().__init__()
-        self.w_gate = _param(init_dense(gen, (d, d_ff), dtype, device))
-        self.w_up = _param(init_dense(gen, (d, d_ff), dtype, device))
-        self.w_down = _param(init_dense(gen, (d_ff, d), dtype, device))
+        self.w_gate = _param(init_dense(gen, (d, d_ff), dtype, device),
+                             ("embed", "mlp"))
+        self.w_up = _param(init_dense(gen, (d, d_ff), dtype, device),
+                           ("embed", "mlp"))
+        self.w_down = _param(init_dense(gen, (d_ff, d), dtype, device),
+                             ("mlp", "embed"))
 
 
 class Layer(nn.Module):
@@ -110,7 +126,8 @@ class Layer(nn.Module):
                  cross: bool = False):
         super().__init__()
         self.kind = kind
-        self.ln1 = _param(torch.ones(cfg.d_model, dtype=dtype, device=device))
+        self.ln1 = _param(torch.ones(cfg.d_model, dtype=dtype, device=device),
+                          ("embed",))
         if kind == "attn":
             self.attn = Attention(cfg, dtype, device, gen)
         elif kind == "rec":
@@ -119,11 +136,11 @@ class Layer(nn.Module):
             self.ssm = SSM(cfg, dtype, device, gen)
         if cross:
             self.ln_x = _param(torch.ones(cfg.d_model, dtype=dtype,
-                                          device=device))
+                                          device=device), ("embed",))
             self.xattn = Attention(cfg, dtype, device, gen)
         if _has_mlp(cfg, kind):
             self.ln2 = _param(torch.ones(cfg.d_model, dtype=dtype,
-                                         device=device))
+                                         device=device), ("embed",))
             if cfg.is_moe:
                 self.moe = MoE(cfg, dtype, device, gen)
             else:
@@ -131,12 +148,15 @@ class Layer(nn.Module):
 
 
 def apply_layer(layer: Layer, cfg, x, positions, mode: str, cache=None,
-                cur_index=None, enc_out=None, mask_kind=None):
+                cur_index=None, enc_out=None, mask_kind=None,
+                seq_shard: bool = False):
     """Returns (x, new_cache, aux): aux the MoE layer's balance loss, None
     for a layer without experts.  ``enc_out`` is the encoder's output in
     "train" and "prefill" mode, the layer's cached cross (k, v) in
     "decode"; the MoE routes at ``capacity_factor`` in "train" mode,
-    at ``capacity_factor_eval`` otherwise."""
+    at ``capacity_factor_eval`` otherwise.  Each sublayer's output joins
+    the residual in its layout (:func:`_residual`; under a mesh the
+    row-parallel products' partial sums are reduced there)."""
     kind = layer.kind
     aux = None
     h = rms_norm(x, layer.ln1, cfg.norm_eps)
@@ -148,7 +168,8 @@ def apply_layer(layer: Layer, cfg, x, positions, mode: str, cache=None,
             new_cache = (ck, cv)
         else:
             mk = mask_kind or ("local" if cfg.window else "causal")
-            out, new_cache = attention(layer.attn, cfg, h, positions, mk)
+            out, new_cache = attention(layer.attn, cfg, h, positions, mk,
+                                       seq_shard=seq_shard)
     elif kind == "rec":
         if mode == "decode":
             out, new_cache = rglru_decode_step(layer.rec, cfg, h, cache)
@@ -159,7 +180,7 @@ def apply_layer(layer: Layer, cfg, x, positions, mode: str, cache=None,
             out, new_cache = ssm_decode_step(layer.ssm, cfg, h, cache)
         else:
             out, new_cache = ssd_forward(layer.ssm, cfg, h)
-    x = x + out
+    x = x + _residual(out, seq_shard and mode != "decode")
     if hasattr(layer, "xattn"):
         h = rms_norm(x, layer.ln_x, cfg.norm_eps)
         if mode == "decode":
@@ -167,14 +188,14 @@ def apply_layer(layer: Layer, cfg, x, positions, mode: str, cache=None,
         else:
             out, _ = attention(layer.xattn, cfg, h, positions,
                                xattn_kv=enc_out)
-        x = x + out
+        x = x + _residual(out, seq_shard and mode != "decode")
     if _has_mlp(cfg, kind):
         h = rms_norm(x, layer.ln2, cfg.norm_eps)
         if cfg.is_moe:
             y, aux = moe_ffn(layer.moe, cfg, h, train=(mode == "train"))
         else:
             y = mlp(layer.mlp, h)
-        x = x + y
+        x = x + _residual(y, seq_shard and mode != "decode")
     return x, new_cache, aux
 
 
@@ -239,18 +260,34 @@ def _add(total, aux):
     return aux if total is None else total + aux
 
 
-def _run_block(block, cfg, x, positions, enc_out=None, mask_kind=None):
+def _residual(x, seq_shard: bool):
+    """The residual stream's layout between layers under an ambient mesh
+    (a no-op without one): the batch over ("pod", "data") and, with
+    ``seq_shard``, the sequence over "model" (Megatron-SP), as the JAX
+    stack constrains it; without it replicated over "model".  JAX's
+    partitioner infers the second layout from the whole program; DTensor
+    picks each op's layout from its inputs alone, so the port states it
+    (after the embedding, too)."""
+    from ..sharding.policy import constrain
+    return constrain(x, ("pod", "data"), "model" if seq_shard else None,
+                     None)
+
+
+def _run_block(block, cfg, x, positions, enc_out=None, mask_kind=None,
+               seq_shard: bool = False):
     """One superblock of the training forward; returns (x, aux)."""
     aux = None
     for layer in block.values():
         x, _, a = apply_layer(layer, cfg, x, positions, "train",
-                              enc_out=enc_out, mask_kind=mask_kind)
+                              enc_out=enc_out, mask_kind=mask_kind,
+                              seq_shard=seq_shard)
+        x = _residual(x, seq_shard)
         aux = _add(aux, a)
     return x, aux
 
 
 def _remat_block(remat: str, block, cfg, x, positions, enc_out=None,
-                 mask_kind=None):
+                 mask_kind=None, seq_shard: bool = False):
     """:func:`_run_block` with its activations recomputed in the backward
     (``remat`` "full" or "dots"); the aux comes out of the checkpointed
     superblock beside x."""
@@ -259,7 +296,7 @@ def _remat_block(remat: str, block, cfg, x, positions, enc_out=None,
         kw["context_fn"] = functools.partial(
             ckpt.create_selective_checkpoint_contexts, _save_dots)
     return ckpt.checkpoint(_run_block, block, cfg, x, positions, enc_out,
-                           mask_kind, use_reentrant=False, **kw)
+                           mask_kind, seq_shard, use_reentrant=False, **kw)
 
 
 # ------------------------------------------------------------------ #
@@ -276,25 +313,31 @@ class Model(nn.Module):
     They cannot equal the JAX package's ``Model.init`` draws;
     ``repro_torch.models.convert`` loads those.  The parameters require
     grad (``repro_torch.training`` trains them); ``remat`` is one of
-    :data:`REMATS`.  Activations run in ``cfg.compute_dtype``.  An
-    encoder-decoder also has ``enc_stack`` (``encoder_layers``
-    superblocks of one attention layer under a full mask) and
-    ``enc_norm``."""
+    :data:`REMATS`; ``seq_shard`` as in the module's docstring.
+    ``device="meta"`` builds the shapes alone, for the dry-run's
+    abstract cells (``repro_torch.launch.specs``).  Activations run in
+    ``cfg.compute_dtype``.  An encoder-decoder also has ``enc_stack``
+    (``encoder_layers`` superblocks of one attention layer under a full
+    mask) and ``enc_norm``."""
 
     def __init__(self, cfg, device=None, dtype=None,
                  generator: Optional[torch.Generator] = None, seed: int = 0,
-                 remat: str = "none"):
+                 remat: str = "none", seq_shard: bool = False):
         super().__init__()
         if remat not in REMATS:
             raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
         self.remat = remat
+        self.seq_shard = seq_shard
         self.cfg = cfg
-        dev = resolve_device(device)
+        meta = device is not None and torch.device(device).type == "meta"
+        dev = torch.device("meta") if meta else resolve_device(device)
         dtype = dtype or getattr(torch, cfg.param_dtype)
-        gen = generator or torch.Generator(device=dev).manual_seed(seed)
+        gen = None if meta else (
+            generator or torch.Generator(device=dev).manual_seed(seed))
         self.embed = _param((torch.randn(
             (cfg.vocab_size, cfg.d_model), generator=gen,
-            dtype=torch.float32, device=dev) * 0.02).to(dtype))
+            dtype=torch.float32, device=dev) * 0.02).to(dtype),
+            ("vocab", "embed"))
         self.stacks = nn.ModuleList([
             nn.ModuleList([
                 nn.ModuleDict({f"b{i}": Layer(cfg, kind, dtype, dev, gen,
@@ -303,16 +346,22 @@ class Model(nn.Module):
                 for _ in range(spec.n_rep)])
             for spec in stack_layout(cfg)])
         self.final_norm = _param(torch.ones(cfg.d_model, dtype=dtype,
-                                            device=dev))
+                                            device=dev), ("embed",))
         if not cfg.tie_embeddings:
             self.head = _param(init_dense(gen, (cfg.d_model, cfg.vocab_size),
-                                          dtype, dev))
+                                          dtype, dev), ("embed", "vocab"))
         if cfg.is_encdec:
             self.enc_stack = nn.ModuleList([
                 nn.ModuleDict({"b0": Layer(cfg, "attn", dtype, dev, gen)})
                 for _ in range(cfg.encoder_layers)])
             self.enc_norm = _param(torch.ones(cfg.d_model, dtype=dtype,
-                                              device=dev))
+                                              device=dev), ("embed",))
+
+    def param_axes(self):
+        """Parameter name -> its logical axes (the JAX package's axes
+        tree, keyed by the port's names; a leaf stacked per superblock
+        there has its leading ``"layers"`` dropped here)."""
+        return {name: p.logical_axes for name, p in self.named_parameters()}
 
     @property
     def device(self) -> torch.device:
@@ -324,15 +373,18 @@ class Model(nn.Module):
 
     # ---------------- helpers ----------------------------------------- #
     def _embed(self, tokens):
+        """The rows of ``embed`` (a lookup that a vocab-sharded DTensor
+        table serves shard by shard, never gathered whole)."""
         tokens = torch.as_tensor(tokens, device=self.device).long()
-        return self.embed[tokens].to(self.compute_dtype)
+        return embed_lookup(self.embed, tokens).to(self.compute_dtype)
 
     def _inputs(self, tokens, embeds):
-        """The token embeddings, or ``embeds`` (B, S, d) in their place."""
+        """The token embeddings, or ``embeds`` (B, S, d) in their place,
+        in the residual stream's layout."""
         if embeds is None:
-            return self._embed(tokens)
-        return torch.as_tensor(embeds, device=self.device).to(
-            self.compute_dtype)
+            return _residual(self._embed(tokens), self.seq_shard)
+        return _residual(torch.as_tensor(embeds, device=self.device).to(
+            self.compute_dtype), self.seq_shard)
 
     def _logits(self, x):
         head = self.embed.t() if self.cfg.tie_embeddings else self.head
@@ -352,8 +404,9 @@ class Model(nn.Module):
         """One superblock of the training forward; returns (x, aux)."""
         if self.remat != "none" and torch.is_grad_enabled():
             return _remat_block(self.remat, block, self.cfg, x, positions,
-                                enc_out, mask_kind)
-        return _run_block(block, self.cfg, x, positions, enc_out, mask_kind)
+                                enc_out, mask_kind, self.seq_shard)
+        return _run_block(block, self.cfg, x, positions, enc_out, mask_kind,
+                          self.seq_shard)
 
     def encode(self, enc_embeds):
         """The bidirectional encoder over the frontend's embeddings (B,
@@ -403,7 +456,10 @@ class Model(nn.Module):
                             new_c[f"{name}_x"] = eo
                     x, new_c[name], a = apply_layer(
                         layer, self.cfg, x, positions, mode, cache=c_in,
-                        cur_index=cur_index, enc_out=eo)
+                        cur_index=cur_index, enc_out=eo,
+                        seq_shard=self.seq_shard and mode != "decode")
+                    if mode != "decode":
+                        x = _residual(x, self.seq_shard)
                     aux = _add(aux, a)
                 stack_out.append(new_c)
             out.append(stack_out)
@@ -412,11 +468,10 @@ class Model(nn.Module):
     def _cross_kv(self, layer, enc_out):
         """A decoder layer's cross-attention (k, v) of the encoder output,
         each (B, S_enc, KV, D)."""
-        b, s, _ = enc_out.shape
         cd = enc_out.dtype
-        shape = (b, s, self.cfg.num_kv_heads, self.cfg.head_dim)
-        return ((enc_out @ layer.xattn.wk.to(cd)).reshape(shape),
-                (enc_out @ layer.xattn.wv.to(cd)).reshape(shape))
+        heads = (self.cfg.num_kv_heads, self.cfg.head_dim)
+        return (split_dim(enc_out @ layer.xattn.wk.to(cd), 2, heads),
+                split_dim(enc_out @ layer.xattn.wv.to(cd), 2, heads))
 
     # ---------------- entry points ------------------------------------ #
     def forward_aux(self, tokens=None, positions=None, embeds=None,
@@ -483,5 +538,6 @@ class Model(nn.Module):
 
 
 def build_model(cfg, device=None, dtype=None, seed: int = 0,
-                remat: str = "none") -> Model:
-    return Model(cfg, device=device, dtype=dtype, seed=seed, remat=remat)
+                remat: str = "none", seq_shard: bool = False) -> Model:
+    return Model(cfg, device=device, dtype=dtype, seed=seed, remat=remat,
+                 seq_shard=seq_shard)

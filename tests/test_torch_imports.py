@@ -7,12 +7,16 @@ overlay}.py``, the vector-clock engine ``core/vecsim/vc.py``, the
 cross-validation ``core/vecsim/crossval.py``, the live serving package
 ``core/vecsim/live``, the sharded engine ``core/vecsim/shard`` and the
 LM substrate's ``configs``, ``models``, ``kernels``, ``serving`` and
-``launch``, and its training path's ``training``, ``data``,
-``checkpoint`` and ``runtime`` included), and by importing the port and
+``launch``, its training path's ``training``, ``data``,
+``checkpoint`` and ``runtime``, the distribution layer's ``sharding``
+and the tensorized round engine ``core/engine`` included), and by
+importing the port and
 running a small windowed CPU run, a small live CPU run with telemetry, a
 small sharded CPU run, a small CPU run cross-validated against the exact
 engine, a small vector-clock run, a smoke-size LM serving run, two
-launcher train steps with a checkpoint, and a causal-gossip round in a
+launcher train steps with a checkpoint, a causal-gossip round, the
+round engine on one device and on one rank of its sharded runner, the
+policy's specs and a dry-run cell traced on a fake 2 x 2 group in a
 child interpreter where both are blocked."""
 
 import ast
@@ -33,7 +37,8 @@ def _port_files():
                     "core/vecsim/shard", "api", "configs", "models",
                     "kernels", "kernels/rglru_scan", "kernels/ssd_scan",
                     "kernels/flash_attention", "serving", "launch",
-                    "training", "data", "checkpoint", "runtime"):
+                    "training", "data", "checkpoint", "runtime",
+                    "sharding", "core/engine"):
         assert any(f.parent == port / package for f in files), package
     return files + [REPO / "chip_smoke.py"]
 
@@ -122,6 +127,31 @@ tr.run_rounds(1)
 rep = tr.causal_report()
 assert rep.causal_ok and rep.n_broadcasts == 3, rep.summary()
 assert all(len(p.applied) == 2 for p in tr.pods.values())
+import repro_torch.sharding.pipeline
+from repro_torch.core.engine import random_instance, run_engine, run_ref
+from repro_torch.core.engine.sharded import run_engine_sharded
+inst = random_instance(1, n=12, k=3, m_app=4, n_adds=2, n_rms=1, rounds=24)
+d = run_engine(*inst, device="cpu")
+assert (d == run_ref(inst[0], inst[1], inst[2].copy(), inst[3].copy())).all()
+assert (run_engine_sharded(*inst, device="cpu") == d).all()
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.launch import specs
+from repro_torch.launch.roofline import model_flops
+shapes, axes = specs.shapes_and_axes(get_arch("qwen3-moe-235b-a22b"))
+sp = specs.param_specs(get_arch("qwen3-moe-235b-a22b"), shapes, axes,
+                       {"data": 16, "model": 16})
+assert sp["stacks.0.0.b0.moe.w_gate"] == ("model", "data", None), sp
+assert model_flops(get_arch("qwen3-8b"), ShapeSpec("t", 64, 8, "train")) > 0
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.launch.dryrun import run_cell
+from repro_torch.launch.mesh import init_fake_group
+init_fake_group(4)
+rec = run_cell("yi-6b", "t", False, cfg=replace(get_arch("yi-6b").smoke(),
+               num_layers=1), shape=ShapeSpec("t", 32, 4, "train"),
+               mesh=init_device_mesh("cpu", (2, 2),
+                                     mesh_dim_names=("data", "model")),
+               verbose=False)
+assert rec["flops_per_device"] > 0
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro")
                 and sys.modules[m] is not None)

@@ -220,6 +220,13 @@ def test_wrappers_check_inputs_and_count_no_cpu_launch():
     with pytest.raises(ValueError, match="kv heads"):
         flash_attention(q, q[:, :1].repeat(1, 3, 1, 1).contiguous(),
                         q[:, :1].repeat(1, 3, 1, 1).contiguous())
-    meta = torch.empty((1, 2, 8, 4), device="meta")
+    # a device other than the card and the CPU is refused; a meta tensor
+    # (the dry-run's abstract cells) only gets its output allocated, and
+    # no launch is counted
+    from repro_torch.kernels import common
     with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
-        flash_attention(meta, meta, meta)
+        common.route(torch.device("xpu"))
+    meta = torch.empty((1, 2, 8, 4), device="meta")
+    out = flash_attention(meta, meta, meta)
+    assert out.device.type == "meta" and out.shape == meta.shape
+    assert LAUNCHES == before
