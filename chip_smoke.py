@@ -111,7 +111,10 @@ non-zero:
      launch, wrapper, plain, scaled_dot_product_attention for flash)
      and bounded; ssd_scan on the mamba2-2.7b prefill's inputs must run
      its tensor-core body, and stay within the bf16 tolerance of a
-     float64 evaluation;
+     float64 evaluation; ssd_scan_bwd (the SSD backward kernel) against
+     its plain version ``ssd_chunk_scan_bwd_ref`` on every ssd_scan small
+     case in both types, each gradient within the tolerance of its type
+     of its largest entry;
  14. lm_serve_recurrentgemma — recurrentgemma-9b at full width and
      depth (38 layers: 26 RG-LRU, 12 local attention; f32 weights from
      a seeded generator, bf16 compute) through ServingEngine: 4 slots,
@@ -147,17 +150,19 @@ non-zero:
      configs at float32, 3 train steps on the card and on the CPU, each
      step from one state: loss within 2e-5 and every gradient leaf
      within 1e-4 of its largest entry, 4 rglru_scan launches forward and
-     4 backward a hybrid step, 4 ssd_scan launches a Mamba-2 step (its
-     backward recomputes the plain version on the card);
+     4 backward a hybrid step, 4 ssd_scan and 4 ssd_scan_bwd launches a
+     Mamba-2 step;
  19b. train_mamba2 — mamba2-2.7b at its published width, depth cut to
      16 of 64 layers, 4 AdamW steps on 1 x 2,048 tokens: step ms,
-     tokens/s, peak memory, 16 ssd_scan launches a step; then, on the
-     run's first scan inputs, the wrapper against its plain version
-     (bf16 2e-2) and timed, and the wrapper's backward (``_SSDScan``:
-     the plain version recomputed and differentiated on the card)
-     against autograd through the plain version, timed; they go on the
-     kernels line's ssd_scan entry as ``training_shape`` and
-     ``backward``;
+     tokens/s, peak memory, 16 ssd_scan and 16 ssd_scan_bwd launches a
+     step, no call of the plain version; then, on the run's first scan
+     inputs, the wrapper against its plain version (bf16 2e-2) and
+     timed (the kernels line's ssd_scan entry, ``training_shape``), and
+     the backward kernel against the plain backward and float64
+     autograd, timed as the bare launch, the wrapper, the plain backward
+     and the recompute it replaced (autograd through the plain forward),
+     with its bound and peak memory (the kernels line's ssd_scan_bwd
+     entry);
  20. rglru_backward — rglru_scan's backward (a second, reversed launch of
      the scan kernel) on phase 21's inputs at B=1, S=2,048, W=4,096,
      against autograd through the plain version, timed and bounded; it
@@ -215,8 +220,9 @@ non-zero:
      ranks, meta tensors), started after the build in a process of its
      own beside the card phases, its record printed.
 
-Then the kernels line (all eleven kernels; launches summed over every
-main-path phase, 17 to 22 and 28 included), the card's name and power
+Then the kernels line (all eleven kernels and ssd_scan_bwd, the SSD
+scan's backward; launches summed over every main-path phase, 17 to 22
+and 28 included), the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Needs
 one CUDA card; exits non-zero without one.
 
@@ -389,6 +395,8 @@ def _card_phases(torch, np, dev, dry, dry_dir, dry_started) -> int:
     for e in entries:
         e["launches"] += extra.get(e["name"], 0)
         e.update(fields.get(e["name"], {}))
+    # ssd_scan_bwd launches on the training paths alone
+    entries.append(fields["ssd_scan_bwd"])
     # -- 23-26. the MoE, encoder-decoder and M-RoPE families ----------- #
     # (no LM kernel on their paths; each phase checks that none ran)
     family_phases(torch, np)
@@ -2141,7 +2149,10 @@ LM_KSRC = "src/repro_torch/kernels/csrc"
 LM_REPLACES = {
     "rglru_scan": "src/repro/kernels/rglru_scan/kernel.py:24",
     "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:26",
-    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:30"}
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:30",
+    # the backward of that TPU kernel, which has none: JAX differentiates
+    # ssd_chunk_scan_ref (src/repro/models/ssm.py:68)
+    "ssd_scan_bwd": "src/repro/kernels/ssd_scan/kernel.py:26"}
 # H100 SXM data-sheet peak of the tensor cores, dense bf16: the LM
 # kernels' operations are counted against it
 BF16_FLOPS_PER_S = 989e12
@@ -2369,7 +2380,10 @@ LM_SMALL = {
                  dict(b=1, s=100, h=3, p=12, n=24, chunk=128),
                  dict(b=1, s=200, h=80, p=64, n=128, chunk=128),
                  dict(b=1, s=50, h=2, p=64, n=200, chunk=64),
-                 dict(b=1, s=300, h=2, p=32, n=64, chunk=256)],
+                 dict(b=1, s=300, h=2, p=32, n=64, chunk=256),
+                 # 11 chunks of 10 heads: the backward's chunk walks in
+                 # batches of 8, its head groups of 8
+                 dict(b=2, s=170, h=10, p=8, n=16, chunk=16)],
     "flash_attention": [
         dict(b=1, h=4, kv=4, sq=128, skv=128, d=64, causal=True),
         dict(b=2, h=4, kv=2, sq=200, skv=200, d=64, causal=True),
@@ -2429,6 +2443,70 @@ def check_lm_small(torch, np, dev):
         not bodies.get("mma float32"), bodies
     emit("lm_kernels_small", cases=cases, kernels=sorted(calls),
          max_abs_err=errs, tolerance=LM_TOL, ssd_scan_bodies=bodies)
+
+
+def _ssd_bwd_inputs(torch, np, rng, inp):
+    """Output gradients for the ssd_scan inputs ``inp``: dy (as xbar) and
+    dh (B, H, N, P) f32, made with numpy from ``rng``."""
+    x = inp["xbar"]
+    b, s, h, p = x.shape
+    n = inp["Bm"].shape[-1]
+    dy = torch.from_numpy(rng.standard_normal((b, s, h, p)).astype(
+        np.float32)).to(x.device, x.dtype)
+    dh = torch.from_numpy(rng.standard_normal((b, h, n, p)).astype(
+        np.float32)).to(x.device)
+    return dy, dh
+
+
+def _ssd_bwd_args(inp):
+    return tuple(inp[k] for k in ("xbar", "a_log", "Bm", "Cm"))
+
+
+def _leaf_close(torch, got, want, tol):
+    """:func:`_grad_close` on tuples of gradients, with the largest
+    |difference|: (its worst fraction, that difference, ok).  The
+    gradients of a scan sum many terms of both signs (da_log is a
+    reverse cumsum of them), so each is held to its own scale, as the
+    CPU tests hold the plain backward to JAX's."""
+    assert [g.shape for g in got] == [w.shape for w in want]
+    frac, ok = _grad_close(torch, dict(enumerate(got)),
+                           {i: w.float().cpu() for i, w in enumerate(want)},
+                           tol)
+    err = max(float((g.double() - w.double()).abs().max())
+              for g, w in zip(got, want))
+    return frac, err, ok
+
+
+def check_ssd_bwd_small(torch, np, dev):
+    """Phase 13a, the backward: ssd_scan_bwd (through the wrapper's
+    ``_scan_bwd``, one count a call) against its plain version
+    ``ssd_chunk_scan_bwd_ref`` on the card, on every ssd_scan small case
+    in float32 and bfloat16, each gradient within the tolerance of its
+    type of its largest entry."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.ssd_scan.ops import _scan_bwd
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunk_scan_bwd_ref
+    rng = np.random.default_rng(20272)
+    worst, cases = {}, 0
+    for shape in LM_SMALL["ssd_scan"]:
+        for dtype in ("float32", "bfloat16"):
+            inp = _lm_random(torch, np, rng, "ssd_scan", dev, dtype, **shape)
+            dy, dh = _ssd_bwd_inputs(torch, np, rng, inp)
+            before = LAUNCHES["ssd_scan_bwd"]
+            got = _scan_bwd(*_ssd_bwd_args(inp), dy, dh, inp["chunk"])
+            assert LAUNCHES["ssd_scan_bwd"] == before + 1
+            want = ssd_chunk_scan_bwd_ref(*_ssd_bwd_args(inp), dy, dh,
+                                          chunk=inp["chunk"])
+            frac, err, ok = _leaf_close(torch, got, want, LM_TOL[dtype])
+            if not ok:
+                raise AssertionError(
+                    f"ssd_scan_bwd differs from its plain version on "
+                    f"{shape} {dtype}: {frac} of a gradient's largest")
+            worst[dtype] = max(worst.get(dtype, 0.0), frac)
+            cases += 1
+    torch.cuda.synchronize()
+    emit("ssd_scan_bwd_small", cases=cases, worst_frac_of_leaf_max=worst,
+         tolerance=LM_TOL)
 
 
 def _ssd_body(inp) -> str:
@@ -2832,6 +2910,7 @@ def lm_phases(torch, np, dev):
     """Phases 13-16; returns the kernels-line entries of the three LM
     kernels with their launches on the two serving paths."""
     check_lm_small(torch, np, dev)
+    check_ssd_bwd_small(torch, np, dev)
     captured = {}
     rg, captured["rglru_scan"], captured["attention"] = lm_serve_phase(
         torch, np, "recurrentgemma-9b", capture_attention=True)
@@ -3150,7 +3229,8 @@ def _train_parity(torch, np, cfg, extra=None, routing=None):
     launches the LM kernels :func:`_lm_launches` times forward and the
     RG-LRU scan's reversed launch as often backward.  ``routing``, if
     given, is called around each gradient evaluation (a context
-    manager).  Returns (per-step rows, the card's launches)."""
+    manager).  The SSD scan's backward kernel launches as often as its
+    forward.  Returns (per-step rows, the card's launches)."""
     import contextlib
     import copy
 
@@ -3170,6 +3250,7 @@ def _train_parity(torch, np, cfg, extra=None, routing=None):
     data = SyntheticLM(DataConfig(cfg.vocab_size, 64, 4, seed=1))
     want = dict(_lm_launches(cfg))
     want["rglru_scan_bwd"] = want["rglru_scan"]
+    want["ssd_scan_bwd"] = want["ssd_scan"]
     rows, total = [], {}
     for step in range(TRAIN_PARITY_STEPS):
         batch = dict(data.batch(step), **(extra or {}))
@@ -3226,8 +3307,8 @@ def train_parity_phase(torch, np):
     """Phase 19: the yi-6b, recurrentgemma-9b and mamba2-2.7b smoke
     configs at f32, 3 train steps card against CPU from one state
     (:func:`_train_parity`): 4 rglru_scan launches forward and 4
-    backward a hybrid step, 4 ssd_scan launches a Mamba-2 step (its
-    backward recomputes the plain version on the card)."""
+    backward a hybrid step, 4 ssd_scan and 4 ssd_scan_bwd launches a
+    Mamba-2 step."""
     from dataclasses import replace
 
     from repro_torch.configs import get_arch
@@ -3278,30 +3359,184 @@ def _timed_train(torch, np, step_fn, params, opt, batches, tokens):
     return rows, params, opt, launches
 
 
+def _ssd_bwd_bound(inp):
+    """(bound_ms, bound_by, flops, bytes) of the SSD backward on the
+    forward's inputs ``inp``: the inputs, dy and dh read once and the four
+    gradients written once, over 3.35 TB/s, against the products it
+    needs — dY X^T and M^T dY on each head's lower triangle; B dH, dY
+    H_prev^T and X dH^T a head; the two state walks' B^T diag(w) X and
+    C^T diag(e^l) dY a head; C B^T, S B and S^T C once a chunk (S the
+    heads' dCB summed) — over 989 TFLOP/s."""
+    from repro_torch.kernels.ssd_scan.ref import chunk_len
+    x = inp["xbar"]
+    b, s, h, p = x.shape
+    n = inp["Bm"].shape[-1]
+    q = chunk_len(s, inp["chunk"])
+    nc = -(-s // q)
+    tri = q * (q + 1) // 2
+    flops = 2 * b * nc * (h * (2 * tri * p + 5 * q * n * p) + 3 * tri * n)
+    nbytes = 2 * sum(inp[k].numel() * inp[k].element_size()
+                     for k in ("xbar", "a_log", "Bm", "Cm")) \
+        + x.numel() * x.element_size() + 4 * b * h * n * p
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", flops, nbytes)
+
+
+def _peak_above(torch, fn):
+    """(the allocator's peak during one ``fn()``, that peak less what was
+    allocated before it), in bytes."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return peak, peak - base
+
+
+def _per_launch_ms(torch, fn, reps=5):
+    """Device ms of one launch of each kernel ``fn()`` launches, by kernel
+    name, from ``torch.profiler`` (CUPTI) over ``reps`` calls, or None
+    where it records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", 0)
+        if t and "kernel" in e.key:
+            out[e.key.split("(")[0].split("::")[-1].split("<")[0]] = \
+                t / e.count / 1e3
+    return out or None
+
+
+def ssd_bwd_entry(torch, np, inp):
+    """The kernels-line entry of ssd_scan_bwd on the forward inputs
+    ``inp`` (the training shape): output gradients drawn from a seeded
+    generator; the kernel through ``_SSDScan`` (``autograd.grad`` of
+    ``ssd_chunk_scan``) held against the plain backward
+    ``ssd_chunk_scan_bwd_ref`` (each gradient within the tolerance of its
+    type of its largest entry) and against autograd through the plain
+    forward in float64; timed as the bare launch (outputs allocated
+    before), the wrapper's forward and backward less its
+    forward, the plain backward, and the design it replaced — autograd
+    through ``ssd_chunk_scan_ref`` recomputed on the card; bounded by
+    :func:`_ssd_bwd_bound`; the device ms of each of its launches; the
+    allocator's peak of the wrapper's backward and of the recompute."""
+    from repro_torch.kernels.ssd_scan.ops import (_scan_bwd,
+                                                  launch_ssd_scan_bwd,
+                                                  ssd_chunk_scan)
+    from repro_torch.kernels.ssd_scan.ref import (chunk_len,
+                                                  ssd_chunk_scan_bwd_ref,
+                                                  ssd_chunk_scan_ref)
+
+    x, al, bm, cm = _ssd_bwd_args(inp)
+    chunk = inp["chunk"]
+    dtype = _lm_dtype("ssd_scan", inp)
+    tol = LM_TOL[dtype]
+    s, n = x.shape[1], bm.shape[-1]
+    q = chunk_len(s, chunk)
+    assert s % q == 0, (s, q)
+    dy, dh = _ssd_bwd_inputs(torch, np, np.random.default_rng(4), inp)
+    args = [t.detach().requires_grad_() for t in (x, al, bm, cm)]
+
+    def forward():
+        return ssd_chunk_scan(*args, chunk=chunk)
+
+    def forward_backward():
+        return torch.autograd.grad(forward(), args, (dy, dh))
+
+    y, _ = forward()
+    assert type(y.grad_fn).__name__ == "_SSDScanBackward", y.grad_fn
+    del y
+    got = forward_backward()
+    want = ssd_chunk_scan_bwd_ref(x, al, bm, cm, dy, dh, chunk=chunk)
+    frac, err, ok = _leaf_close(torch, got, want, tol)
+    if not ok:
+        raise AssertionError(f"ssd_scan_bwd differs from its plain version "
+                             f"at the training shape: {frac} of a "
+                             f"gradient's largest entry")
+    wide = [t.detach().double().requires_grad_() for t in (x, al, bm, cm)]
+    truth = torch.autograd.grad(ssd_chunk_scan_ref(*wide, chunk=chunk),
+                                wide, (dy.double(), dh.double()))
+    del wide
+    f64_frac, f64_err, _ = _leaf_close(
+        torch, tuple(g.double() for g in got), truth, tol)
+    plain_frac, plain_err, _ = _leaf_close(
+        torch, tuple(g.double() for g in want), truth, tol)
+    del got, want, truth
+
+    outs = [torch.empty_like(t) for t in (x, al, bm, cm)]
+    launch = lambda: launch_ssd_scan_bwd(x, al, bm, cm, dy, dh, *outs, q)
+    ms = _time_fn(torch, launch, 20)
+    both_ms = _time_fn(torch, forward_backward, 10, queued=False)
+    fwd_ms = _time_fn(torch, forward, 10, queued=False)
+    plain_ms = _time_fn(torch, lambda: ssd_chunk_scan_bwd_ref(
+        x, al, bm, cm, dy, dh, chunk=chunk), 5, queued=False)
+
+    def recompute():
+        ref_args = [t.detach().requires_grad_() for t in (x, al, bm, cm)]
+        return torch.autograd.grad(ssd_chunk_scan_ref(*ref_args, chunk=chunk),
+                                   ref_args, (dy, dh))
+    recompute_ms = _time_fn(torch, recompute, 5, queued=False)
+    ms2 = _time_fn(torch, launch, 20)
+    per_launch = _per_launch_ms(torch, launch)
+    del outs
+    bwd_peak, bwd_extra = _peak_above(
+        torch, lambda: _scan_bwd(x, al, bm, cm, dy, dh, chunk))
+    rec_peak, rec_extra = _peak_above(torch, recompute)
+    bound_ms, bound_by, flops, nbytes = _ssd_bwd_bound(inp)
+    return dict(
+        name="ssd_scan_bwd", route="cuda",
+        source=f"{LM_KSRC}/ssd_scan_bwd.cu",
+        replaces=LM_REPLACES["ssd_scan_bwd"], launches=None,
+        max_abs_err=err, ms=min(ms, ms2), plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        shape=list(x.shape), n=n, chunk=chunk, dtype=dtype, tolerance=tol,
+        tolerance_of="each gradient's largest entry",
+        max_frac_of_leaf_max=frac, flops=flops, bytes=nbytes,
+        ms_repeats=[ms, ms2],
+        wrapper_ms=both_ms - fwd_ms, forward_and_backward_ms=both_ms,
+        forward_ms=fwd_ms, recompute_ms=recompute_ms,
+        f64_max_abs_err=f64_err, f64_frac_of_leaf_max=f64_frac,
+        plain_f64_max_abs_err=plain_err, plain_f64_frac_of_leaf_max=plain_frac,
+        per_launch_ms=per_launch,
+        peak_memory_bytes=bwd_peak, peak_above_before_bytes=bwd_extra,
+        recompute_peak_memory_bytes=rec_peak,
+        recompute_peak_above_before_bytes=rec_extra,
+        note="the SSD backward kernel, on the inputs of the mamba2 training "
+             "run's first ssd_chunk_scan call, random dy and dh; wrapper_ms "
+             "= the wrapper's forward and backward less its forward; "
+             "recompute_ms = the design it replaced, autograd through "
+             "ssd_chunk_scan_ref on the card")
+
+
 def train_mamba2_phase(torch, np):
     """Phase 19b: mamba2-2.7b at its published width (d_model 2,560, 80
     SSD heads x 64, N 128, chunks of 128, vocab 50,280 tied; f32
     parameters, bf16 compute), its depth cut to 16 of 64 layers, 4 AdamW
     steps on 1 x 2,048 tokens of SyntheticLM: loss, step ms, tokens/s,
-    peak memory, 16 ssd_scan launches a step.  Then, on the inputs of
-    the run's first ssd_scan call (B=1, S=2,048, H=80, P=64, N=128,
-    bf16, the tensor-core body): the wrapper held against its plain
-    version (bf16 2e-2) and against float64, timed; and the shipped
-    backward — ``ssd_chunk_scan`` through ``_SSDScan`` on inputs that
-    need a gradient, then ``autograd.grad`` — its gradients held against
-    autograd through the plain version (bf16 2e-2), its time the
-    forward-and-backward's less the forward's, bounded by the bytes it
-    must move (the forward's inputs and output gradients read, the input
-    gradients written).  Returns (the run's launches, the training
-    shape's kernels-line entry with the backward's record in it)."""
+    peak memory, 16 ssd_scan and 16 ssd_scan_bwd launches a step, and no
+    call of the plain version (a counter round ``ops.ssd_chunk_scan_ref``
+    reads 0).  Then, on the inputs of the run's first ssd_scan call (B=1,
+    S=2,048, H=80, P=64, N=128, bf16, the tensor-core body): the wrapper
+    held against its plain version (bf16 2e-2) and against float64,
+    timed; and the backward kernel's entry (:func:`ssd_bwd_entry`).
+    Returns (the run's launches, the training shape's ssd_scan entry,
+    ssd_scan_bwd's entry)."""
     import gc
     from dataclasses import replace
 
+    import repro_torch.kernels.ssd_scan.ops as ssd_ops
     import repro_torch.models.ssm as ssm_mod
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
-    from repro_torch.kernels.ssd_scan.ops import ssd_chunk_scan
-    from repro_torch.kernels.ssd_scan.ref import ssd_chunk_scan_ref
     from repro_torch.training.optimizer import AdamWConfig, init_opt_state
     from repro_torch.training.step import make_train_step
 
@@ -3313,6 +3548,7 @@ def train_mamba2_phase(torch, np):
     data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
                                   seed=0))
     wrapper, captured = ssm_mod.ssd_chunk_scan, {}
+    plain, plain_calls = ssd_ops.ssd_chunk_scan_ref, []
 
     def keep(xbar, a_log, Bm, Cm, chunk):
         if not captured:
@@ -3322,7 +3558,12 @@ def train_mamba2_phase(torch, np):
                             chunk=chunk)
         return wrapper(xbar, a_log, Bm, Cm, chunk=chunk)
 
+    def counted_plain(*args, **kw):
+        plain_calls.append(1)
+        return plain(*args, **kw)
+
     ssm_mod.ssd_chunk_scan = keep
+    ssd_ops.ssd_chunk_scan_ref = counted_plain
     try:
         rows, params, opt, launches = _timed_train(
             torch, np, step_fn, params, opt,
@@ -3330,8 +3571,12 @@ def train_mamba2_phase(torch, np):
             TRAIN_SEQ * TRAIN_BATCH)
     finally:
         ssm_mod.ssd_chunk_scan = wrapper
+        ssd_ops.ssd_chunk_scan_ref = plain
     for r in rows:
-        assert r["launches"] == {"ssd_scan": cfg.num_layers}, r["launches"]
+        assert r["launches"] == {"ssd_scan": cfg.num_layers,
+                                 "ssd_scan_bwd": cfg.num_layers}, \
+            r["launches"]
+    assert not plain_calls, len(plain_calls)
     assert all(bool(torch.isfinite(p).all()) for p in params.values())
     emit("train_mamba2", arch=cfg.name, published_layers=get_arch(
         cfg.name).num_layers, **_sizes(cfg, model), ssm_heads=cfg.ssm_heads,
@@ -3340,7 +3585,7 @@ def train_mamba2_phase(torch, np):
          steps=rows, median_step_ms_after_first=statistics.median(
              r["step_ms"] for r in rows[1:]),
          peak_memory_bytes=max(r["peak_memory_bytes"] for r in rows),
-         launches=launches)
+         launches=launches, plain_version_calls=len(plain_calls))
     del model, params, opt, step_fn
     gc.collect()
     torch.cuda.empty_cache()
@@ -3349,52 +3594,11 @@ def train_mamba2_phase(torch, np):
     inp = captured
     entry = _lm_entry(torch, np, "ssd_scan", inp,
                       note="the mamba2 training path's first call")
-    # the shipped backward, on the same inputs
-    x, al, bm, cm, chunk = (inp[k] for k in ("xbar", "a_log", "Bm", "Cm",
-                                              "chunk"))
-    gen = torch.Generator(device=x.device).manual_seed(4)
-    dy = torch.randn(x.shape, generator=gen, device=x.device).to(x.dtype)
-    b, _, h, p = x.shape
-    dh = torch.randn((b, h, bm.shape[-1], p), generator=gen,
-                     device=x.device)
-    args = [t.detach().requires_grad_() for t in (x, al, bm, cm)]
-
-    def forward():
-        y, hfin = ssd_chunk_scan(*args, chunk=chunk)
-        return y, hfin
-
-    def forward_backward():
-        return torch.autograd.grad(forward(), args, (dy, dh))
-
-    y, _ = forward()
-    assert type(y.grad_fn).__name__ == "_SSDScanBackward", y.grad_fn
-    got = forward_backward()
-    want = torch.autograd.grad(ssd_chunk_scan_ref(*args, chunk=chunk),
-                               args, (dy, dh))
-    err, ok = _lm_close(torch, got, want, LM_TOL[entry["dtype"]])
-    if not ok:
-        raise AssertionError(f"ssd_scan's backward differs from autograd "
-                             f"through its plain version: max |err| {err}")
-    del y, got, want
-    torch.cuda.reset_peak_memory_stats()
-    both_ms = _time_fn(torch, forward_backward, 10, queued=False)
-    bwd_peak = torch.cuda.max_memory_allocated()
-    fwd_ms = _time_fn(torch, forward, 10, queued=False)
-    nbytes = 2 * sum(t.numel() * t.element_size() for t in (x, al, bm, cm)) \
-        + dy.numel() * dy.element_size() + dh.numel() * dh.element_size()
-    entry["backward"] = dict(
-        ms=both_ms - fwd_ms, forward_and_backward_ms=both_ms,
-        forward_ms=fwd_ms, max_abs_err=err, tolerance=LM_TOL[entry["dtype"]],
-        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        bytes=nbytes, peak_memory_bytes=bwd_peak,
-        launches_per_step=cfg.num_layers,
-        note="_SSDScan.backward: ssd_chunk_scan_ref recomputed and "
-             "differentiated on the card (no kernel; ROADMAP item 16 is "
-             "its kernel); ms = forward and backward less the forward")
     emit("ssd_train_shape", **entry)
-    del args, dy, dh
+    bwd = ssd_bwd_entry(torch, np, inp)
+    emit("ssd_train_shape_backward", **bwd)
     inp.clear()
-    return launches, entry
+    return launches, entry, bwd
 
 
 def train_recurrentgemma_phase(torch, np, captured):
@@ -3642,12 +3846,13 @@ def gossip_phase(torch, np):
 
 def train_phases(torch, np):
     """Phases 19-22; returns (the LM kernels' launches on the training
-    paths, by kernel the fields they add to its kernels-line entry: the
-    backwards of rglru_scan (its reversed launch) and ssd_scan (the
-    recompute), and ssd_scan at the training shape)."""
+    paths, by kernel the fields they add to its kernels-line entry:
+    rglru_scan's backward (its reversed launch), ssd_scan at the training
+    shape, and ssd_scan_bwd's whole entry)."""
     launches = train_parity_phase(torch, np)
-    mamba, ssd_train = train_mamba2_phase(torch, np)
-    launches["ssd_scan"] += mamba["ssd_scan"]
+    mamba, ssd_train, ssd_bwd = train_mamba2_phase(torch, np)
+    for k in ("ssd_scan", "ssd_scan_bwd"):
+        launches[k] += mamba[k]
     captured = {}
     for k, v in train_recurrentgemma_phase(torch, np, captured).items():
         launches[k] = launches.get(k, 0) + v
@@ -3657,9 +3862,10 @@ def train_phases(torch, np):
     for k, v in gossip_phase(torch, np).items():
         launches[k] = launches.get(k, 0) + v
     backward["launches"] = launches.get("rglru_scan_bwd", 0)
+    ssd_bwd["launches"] = launches["ssd_scan_bwd"]
     return launches, {"rglru_scan": dict(backward=backward),
-                      "ssd_scan": dict(backward=ssd_train.pop("backward"),
-                                       training_shape=ssd_train)}
+                      "ssd_scan": dict(training_shape=ssd_train),
+                      "ssd_scan_bwd": ssd_bwd}
 
 
 # --------------------------------------------------------------------- #

@@ -32,9 +32,11 @@ from torch.utils.flop_counter import register_flop_formula
 __all__ = ["LAUNCHES", "reset_launches"]
 
 #: kernel name -> launches since the last :func:`reset_launches`
-#: (``rglru_scan_bwd``: the RG-LRU scan's reversed launch in a backward)
+#: (``rglru_scan_bwd``: the RG-LRU scan's reversed launch in a backward;
+#: ``ssd_scan_bwd``: one SSD scan backward, whatever its launches)
 LAUNCHES: Dict[str, int] = {"rglru_scan": 0, "rglru_scan_bwd": 0,
-                            "ssd_scan": 0, "flash_attention": 0}
+                            "ssd_scan": 0, "ssd_scan_bwd": 0,
+                            "flash_attention": 0}
 
 # element-type codes of the C entry points (csrc/lm_common.cuh)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}

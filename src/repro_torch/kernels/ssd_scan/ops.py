@@ -10,14 +10,15 @@ steps and states of at most 128 rows run on the tensor cores, the rest
 on the CUDA cores (:func:`ssd_scan_body`).
 
 On CUDA tensors that need a gradient the launch is wrapped in an
-autograd function whose backward recomputes the plain version on the
-same card tensors and differentiates it, as flash attention's does; with
-no gradient wanted (serving's prefill) the launch runs bare.  The SSD
-backward does not reduce to this forward kernel (dB and dC contract dy
-with x per head, which its shared (B, S, N) Bm and Cm cannot express):
-a backward kernel of its own is the later speed-up of this path
-(ROADMAP.md, queue 1, item 16).  On the CPU the plain version is
-ordinary differentiable torch code.
+autograd function whose backward is a kernel of its own
+(``csrc/ssd_scan_bwd.cu``, counted under ``ssd_scan_bwd``): the SSD
+backward does not reduce to this forward kernel (dB and dC sum over the
+heads products of dy with x, which its shared (B, S, N) Bm and Cm cannot
+express), so it recomputes the chunk states from the saved inputs and
+computes the four gradients by the formulas of
+``ssd_chunk_scan_bwd_ref``; nothing beyond the inputs is saved.  With no
+gradient wanted (serving's prefill) the launch runs bare.  On the CPU
+the plain version is ordinary differentiable torch code.
 
 On ``meta`` tensors the launch, and its backward, only allocate, counted
 by the dry-run as the roofline's SSD term, 2 B S (q N + H q P + 2 H N P)
@@ -34,7 +35,8 @@ import torch.nn.functional as F
 from .. import common
 from .ref import chunk_len, ssd_chunk_scan_ref
 
-__all__ = ["ssd_chunk_scan", "launch_ssd_scan", "ssd_scan_body"]
+__all__ = ["ssd_chunk_scan", "launch_ssd_scan", "launch_ssd_scan_bwd",
+           "ssd_scan_body"]
 
 # rt_ssd_scan_body's codes (csrc/ssd_scan.cu)
 _BODIES = {0: "fma", 1: "mma"}
@@ -60,11 +62,41 @@ def launch_ssd_scan(xbar, a_log, Bm, Cm, y, hout, q: int):
         common.DTYPE_CODE[xbar.dtype], common.stream(xbar.device)))
 
 
+def launch_ssd_scan_bwd(xbar, a_log, Bm, Cm, dy, dh, dx, da, dB, dC, q: int):
+    """The bare backward launch on padded inputs (S a multiple of ``q``):
+    unchecked, uncounted, into ``dx`` (as xbar), ``da`` (as a_log, f32),
+    ``dB`` and ``dC`` (as Bm); ``dy`` as xbar, ``dh`` (B, H, N, P) f32.
+    Allocates the kernel's f32 scratch (``rt_ssd_scan_bwd_scratch``
+    words), freed on return: the caching allocator hands it out again
+    only behind the launch on the same stream."""
+    b, s, h, p = xbar.shape
+    n = Bm.shape[-1]
+    lib = common.library()
+    words = lib.rt_ssd_scan_bwd_scratch(b, s // q, q, h, p, n)
+    if words < 0:
+        raise ValueError(f"ssd_scan_bwd: {tuple(xbar.shape)} with N={n} "
+                         f"needs a scratch of 2^31 words or more")
+    scratch = torch.empty(words, dtype=torch.float32, device=xbar.device)
+    common.raise_on("ssd_scan_bwd", lib.rt_ssd_scan_bwd(
+        xbar.data_ptr(), a_log.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+        dy.data_ptr(), dh.data_ptr(), dx.data_ptr(), da.data_ptr(),
+        dB.data_ptr(), dC.data_ptr(), scratch.data_ptr(), b, s // q, q, h,
+        p, n, common.DTYPE_CODE[xbar.dtype], common.stream(xbar.device)))
+
+
 def _flops(xbar, n: int, chunk: int) -> int:
     """The roofline's forward flops of one SSD layer on these inputs."""
     b, s, h, p = xbar.shape
     q = chunk_len(s, chunk)
     return 2 * b * s * (q * n + h * q * p + 2 * h * n * p)
+
+
+def _pad_chunks(q: int, *ts):
+    """Each of ``ts`` zero-padded along S (dim 1) to a multiple of ``q``."""
+    pad = (-ts[0].shape[1]) % q
+    if not pad:
+        return ts
+    return tuple(F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in ts)
 
 
 def _scan(xbar, a_log, Bm, Cm, chunk: int):
@@ -77,18 +109,27 @@ def _scan(xbar, a_log, Bm, Cm, chunk: int):
                                 _flops(xbar, n, chunk)),
                 common.meta_out(xbar, [b, h, n, p], torch.float32, 0))
     q = chunk_len(s, chunk)
-    if s % q:
-        pad = q - s % q
-        xbar = F.pad(xbar, (0, 0, 0, 0, 0, pad))
-        a_log = F.pad(a_log, (0, 0, 0, pad))
-        Bm = F.pad(Bm, (0, 0, 0, pad))
-        Cm = F.pad(Cm, (0, 0, 0, pad))
+    xbar, a_log, Bm, Cm = _pad_chunks(q, xbar, a_log, Bm, Cm)
     y = torch.empty_like(xbar)
     hout = torch.empty((b, h, n, p), dtype=torch.float32,
                        device=xbar.device)
     launch_ssd_scan(xbar, a_log, Bm, Cm, y, hout, q)
     common.LAUNCHES["ssd_scan"] += 1
     return y[:, :s], hout
+
+
+def _scan_bwd(xbar, a_log, Bm, Cm, dy, dh, chunk: int):
+    """The backward kernel on the forward's CUDA tensors and the output
+    gradients: pad S to the chunk (dy with zeros), launch (one count a
+    call), drop the padded rows.  Returns (dxbar, da_log, dBm, dCm)."""
+    s = xbar.shape[1]
+    q = chunk_len(s, chunk)
+    xbar, a_log, Bm, Cm, dy = _pad_chunks(q, xbar, a_log, Bm, Cm,
+                                          dy.contiguous())
+    outs = [torch.empty_like(t) for t in (xbar, a_log, Bm, Cm)]
+    launch_ssd_scan_bwd(xbar, a_log, Bm, Cm, dy, dh.contiguous(), *outs, q)
+    common.LAUNCHES["ssd_scan_bwd"] += 1
+    return tuple(t[:, :s] for t in outs)
 
 
 class _SSDScan(torch.autograd.Function):
@@ -108,24 +149,17 @@ class _SSDScan(torch.autograd.Function):
                       if need else None
                       for t, need in zip(saved, ctx.needs_input_grad)),
                     None)
-        # the plain version recomputed on the same tensors and
-        # differentiated (a backward kernel: ROADMAP.md, queue 1, item 16)
-        with torch.enable_grad():
-            args = [t.detach().requires_grad_(need) for t, need in
-                    zip(ctx.saved_tensors, ctx.needs_input_grad)]
-            wanted = [t for t in args if t.requires_grad]
-            y, hfin = ssd_chunk_scan_ref(*args, chunk=ctx.chunk)
-            grads = iter(torch.autograd.grad((y, hfin), wanted, (dy, dh)))
-        return (*(next(grads) if t.requires_grad else None for t in args),
-                None)
+        grads = _scan_bwd(*saved, dy, dh, ctx.chunk)
+        return (*(g if need else None
+                  for g, need in zip(grads, ctx.needs_input_grad)), None)
 
 
 def ssd_chunk_scan(xbar, a_log, Bm, Cm, chunk: int = 128):
     """xbar (B,S,H,P) float32 or bfloat16; a_log (B,S,H) float32; Bm, Cm
     (B,S,N) of xbar's type -> (y (B,S,H,P) of xbar's type, h_final
     (B,H,N,P) float32).  The kernel on CUDA tensors, the plain version on
-    CPU tensors; differentiable (on the card the backward recomputes the
-    plain version).  DTensors run on their local shards."""
+    CPU tensors; differentiable (on the card the backward is the
+    ``ssd_scan_bwd`` kernel).  DTensors run on their local shards."""
     if common.is_dtensor(xbar):
         heads = {0: 0, 2: 2}
         return common.local_call(

@@ -1,9 +1,11 @@
 """Mamba-2 (SSD, state-space duality) block.
 
-The port of the JAX package's ``models/ssm.py``.  Prefill runs the
-chunked SSD scan through ``repro_torch.kernels.ssd_chunk_scan`` — the
-hand-written kernel on the card, its plain version on the CPU — and
-decoding is the O(1) recurrence on a (B, H, N, P) f32 state.
+The port of the JAX package's ``models/ssm.py``.  Prefill and training
+run the chunked SSD scan through ``repro_torch.kernels.ssd_chunk_scan``
+— the hand-written kernel on the card, its plain version on the CPU;
+in training the card's backward is a kernel too (``ssd_scan_bwd``),
+where the JAX package differentiates its jnp reference — and decoding
+is the O(1) recurrence on a (B, H, N, P) f32 state.
 
 Layout follows the reference Mamba-2: in_proj -> [z | x | B | C | dt],
 causal conv over (x, B, C), per-head scalar decay A, D skip, gated

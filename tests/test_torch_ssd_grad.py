@@ -1,10 +1,11 @@
 """The SSD scan wrapper's card path on the CPU: ``route`` made to pick
-the kernel and the bare launch replaced by one that writes the plain
-version into the wrapper's padded buffers.  Under ``no_grad``, or with
-no input needing a gradient, the launch runs bare and no autograd
-function is built; with inputs that need one, the autograd function
-runs the same counted launch, and its backward (the plain version
-recomputed and differentiated) gives autograd's gradients through
+the kernel and the bare launches replaced by ones that write the plain
+versions (``ssd_chunk_scan_ref``, ``ssd_chunk_scan_bwd_ref``) into the
+wrapper's padded buffers.  Under ``no_grad``, or with no input needing a
+gradient, the launch runs bare and no autograd function is built; with
+inputs that need one, the autograd function runs the same counted
+launch, and its backward (one counted ``ssd_scan_bwd`` launch, no call
+of ``ssd_chunk_scan_ref``) gives autograd's gradients through
 ``ssd_chunk_scan_ref`` and ``jax.grad`` of the JAX package's
 ``ssd_chunk_scan_ref`` within f32 2e-5, the padded chunk included."""
 
@@ -17,7 +18,8 @@ import torch
 from repro.kernels.ssd_scan.ref import ssd_chunk_scan_ref as jax_ssd_ref
 from repro_torch.kernels import LAUNCHES, reset_launches
 from repro_torch.kernels.ssd_scan import ops
-from repro_torch.kernels.ssd_scan.ref import ssd_chunk_scan_ref
+from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_scan_bwd_ref,
+                                              ssd_chunk_scan_ref)
 
 NAMES = ("xbar", "a_log", "Bm", "Cm")
 
@@ -32,6 +34,13 @@ def card_path(monkeypatch):
         y.copy_(yy)
         hout.copy_(hh)
 
+    def launch_bwd(xbar, a_log, Bm, Cm, dy, dh, *outs, q):
+        assert xbar.shape[1] % q == 0 and dy.shape == xbar.shape
+        assert dh.dtype == torch.float32
+        for out, g in zip(outs, ssd_chunk_scan_bwd_ref(
+                xbar, a_log, Bm, Cm, dy, dh, chunk=q)):
+            out.copy_(g)
+
     applied = []
     apply = ops._SSDScan.apply
 
@@ -40,6 +49,8 @@ def card_path(monkeypatch):
         return apply(*args)
     monkeypatch.setattr(ops.common, "route", lambda dev: True)
     monkeypatch.setattr(ops, "launch_ssd_scan", launch)
+    monkeypatch.setattr(ops, "launch_ssd_scan_bwd",
+                        lambda *a: launch_bwd(*a[:-1], q=a[-1]))
     monkeypatch.setattr(ops._SSDScan, "apply", counted)
     reset_launches()
     yield applied
@@ -96,11 +107,21 @@ def test_backward_equals_autograd_through_the_plain_version(card_path,
         return (y * gy.numpy()).sum() + (h * gh.numpy()).sum()
 
     want_loss, want = grads(ssd_chunk_scan_ref)
-    got_loss, got = grads(ops.ssd_chunk_scan)
+    plain_calls = []
+
+    def counted_ref(*args, **kw):
+        plain_calls.append(args)
+        return ssd_chunk_scan_ref(*args, **kw)
+    # the card path's forward and backward call no plain version
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ops, "ssd_chunk_scan_ref", counted_ref)
+        got_loss, got = grads(ops.ssd_chunk_scan)
+    assert plain_calls == []
     jax_loss_v, jax_g = jax.value_and_grad(
         jax_loss, argnums=tuple(range(len(need))))(
         *(jnp.asarray(inp[k], jnp.float32) for k in need))
     assert len(card_path) == 1 and LAUNCHES["ssd_scan"] == 1
+    assert LAUNCHES["ssd_scan_bwd"] == 1
     np.testing.assert_allclose(float(got_loss), float(want_loss), rtol=2e-5)
     np.testing.assert_allclose(float(got_loss), float(jax_loss_v),
                                rtol=2e-5)
