@@ -114,7 +114,8 @@ non-zero:
      float64 evaluation; ssd_scan_bwd (the SSD backward kernel) against
      its plain version ``ssd_chunk_scan_bwd_ref`` on every ssd_scan small
      case in both types, each gradient within the tolerance of its type
-     of its largest entry;
+     of its largest entry, on the body the forward's rule names (the
+     tensor cores for bf16 with chunk and N at most 128, else FMA);
  14. lm_serve_recurrentgemma — recurrentgemma-9b at full width and
      depth (38 layers: 26 RG-LRU, 12 local attention; f32 weights from
      a seeded generator, bf16 compute) through ServingEngine: 4 slots,
@@ -158,11 +159,12 @@ non-zero:
      step, no call of the plain version; then, on the run's first scan
      inputs, the wrapper against its plain version (bf16 2e-2) and
      timed (the kernels line's ssd_scan entry, ``training_shape``), and
-     the backward kernel against the plain backward and float64
-     autograd, timed as the bare launch, the wrapper, the plain backward
-     and the recompute it replaced (autograd through the plain forward),
-     with its bound and peak memory (the kernels line's ssd_scan_bwd
-     entry);
+     the backward kernel (its tensor-core body) against the plain
+     backward and float64 autograd (no further than 1.5 times the plain
+     backward's distance), timed as the bare launch, each of its
+     launches, the wrapper, the plain backward and the recompute it
+     replaced (autograd through the plain forward), with its bound and
+     peak memory (the kernels line's ssd_scan_bwd entry);
  20. rglru_backward — rglru_scan's backward (a second, reversed launch of
      the scan kernel) on phase 21's inputs at B=1, S=2,048, W=4,096,
      against autograd through the plain version, timed and bounded; it
@@ -243,10 +245,11 @@ many cards.
 compares engine walls with another checkout on the same card (DIR, a
 directory inside this checkout, e.g. the parent commit unpacked by
 ``git archive`` into build/parent): phase 10's run four times (the first
-warms up), phase 4's four times, phase 15 twice and phase 14 twice, with
-deliver_sweep timed on phase 10's round-40 inputs, frontier_sweep on
-phase 4's rounds 58, 30 and 63 and rglru_scan on phase 14's first
-prefill, in a process of each checkout in turn, DIR, this, this, DIR.
+warms up), phase 4's four times, phase 15 twice, phase 14 twice and phase 19b
+twice, with deliver_sweep timed on phase 10's round-40 inputs,
+frontier_sweep on phase 4's rounds 58, 30 and 63, rglru_scan on phase
+14's first prefill and ssd_scan_bwd on phase 19b's first scan inputs,
+in a process of each checkout in turn, DIR, this, this, DIR.
 """
 
 from __future__ import annotations
@@ -409,7 +412,7 @@ def _card_phases(torch, np, dev, dry, dry_dir, dry_started) -> int:
             e["backward"]["launches"] += extra.get("rglru_scan_bwd", 0)
     dryrun_phase(dry, dry_dir, dry_started)
 
-    # not measured here: the card ms of the earlier designs of five
+    # not measured here: the card ms of the earlier designs of six
     # kernels, copied from PERF.md's kernel table, for the eye beside
     # this run's
     emit("earlier_design_ms", measured_in_this_run=False,
@@ -420,6 +423,7 @@ def _card_phases(torch, np, dev, dry, dry_dir, dry_started) -> int:
          ring_apply={"sharded_churn": 0.04427199997007847,
                      "scale_scan_off": 0.5357600152492523},
          ssd_scan={"lm_serve_mamba2": 2.5712960958480835},
+         ssd_scan_bwd={"train_mamba2_fma_body": 1.9344159960746765},
          deliver_sweep={"gated": 0.05241600051522255,
                         "scale_scan_off": 0.7481440007686615},
          rglru_scan={"lm_serve_recurrentgemma": 0.22115200012922287})
@@ -433,7 +437,8 @@ def _card_phases(torch, np, dev, dry, dry_dir, dry_started) -> int:
 # timed after), phase 4 four times, then once for each of frontier_sweep's
 # three rounds (its inputs kept and timed after), phase 15 twice, and
 # phase 14 twice (rglru_scan's inputs of the first prefill timed after
-# each); the call numbers are filled in by ab_phase
+# each), and phase 19b twice (its step and the backward kernel at the
+# training shape); the call numbers are filled in by ab_phase
 AB_TURN = r"""
 import sys
 sys.path.insert(0, "src")
@@ -472,14 +477,17 @@ for _ in range(2):
     _, rg, _ = cs.lm_serve_phase(torch, np, "recurrentgemma-9b")
     cs.emit("kernel", **cs._lm_entry(torch, np, "rglru_scan", rg))
     del rg
+for _ in range(2):
+    cs.train_mamba2_phase(torch, np)
 """
 
 
 def ab_phase(other: str) -> None:
     """--ab: the walls of scale_scan_off, gated, lm_serve_mamba2 and
-    lm_serve_recurrentgemma, and the card ms of deliver_sweep,
-    frontier_sweep (at its three rounds) and rglru_scan on their
-    main-path inputs, in another checkout and in this one, alternating
+    lm_serve_recurrentgemma and train_mamba2's step, and the card ms of
+    deliver_sweep, frontier_sweep (at its three rounds), rglru_scan and
+    ssd_scan_bwd on their main-path inputs (ssd_scan_bwd's launches
+    each), in another checkout and in this one, alternating
     on this card (each checkout's own bound).  The other checkout lies
     inside this one (e.g. under the gitignored build/), so that nothing
     is run or built outside it."""
@@ -504,7 +512,10 @@ def ab_phase(other: str) -> None:
             rec = json.loads(line)
             keep = ("walls", "engine_wall_seconds", "tokens_per_sec",
                     "prefill_ms", "decode_ms_per_tick", "name", "shape",
-                    "ms", "bound_ms", "max_abs_err", "round")
+                    "ms", "bound_ms", "max_abs_err", "round",
+                    "median_step_ms_after_first", "peak_memory_bytes",
+                    "per_launch_ms", "wrapper_ms", "body",
+                    "peak_above_before_bytes")
             emit("ab_" + rec["phase"], tree=name, **{
                 k: v for k, v in rec.items() if k in keep})
 
@@ -2482,15 +2493,24 @@ def check_ssd_bwd_small(torch, np, dev):
     ``_scan_bwd``, one count a call) against its plain version
     ``ssd_chunk_scan_bwd_ref`` on the card, on every ssd_scan small case
     in float32 and bfloat16, each gradient within the tolerance of its
-    type of its largest entry."""
+    type of its largest entry; each case's body (``ssd_scan_bwd_body``)
+    must be the tensor cores' for bf16 with chunk and N at most 128 and
+    FMA otherwise, so that both bodies are held in both types."""
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.ssd_scan.ops import _scan_bwd
     from repro_torch.kernels.ssd_scan.ref import ssd_chunk_scan_bwd_ref
     rng = np.random.default_rng(20272)
-    worst, cases = {}, 0
+    worst, cases, bodies = {}, 0, {}
     for shape in LM_SMALL["ssd_scan"]:
         for dtype in ("float32", "bfloat16"):
             inp = _lm_random(torch, np, rng, "ssd_scan", dev, dtype, **shape)
+            body = _ssd_bwd_body(inp)
+            q = _ssd_chunk(inp)
+            want_body = ("mma" if dtype == "bfloat16" and q <= 128
+                         and shape["n"] <= 128 else "fma")
+            assert body == want_body, (shape, dtype, body)
+            key = f"{body} {dtype}"
+            bodies[key] = bodies.get(key, 0) + 1
             dy, dh = _ssd_bwd_inputs(torch, np, rng, inp)
             before = LAUNCHES["ssd_scan_bwd"]
             got = _scan_bwd(*_ssd_bwd_args(inp), dy, dh, inp["chunk"])
@@ -2500,22 +2520,35 @@ def check_ssd_bwd_small(torch, np, dev):
             frac, err, ok = _leaf_close(torch, got, want, LM_TOL[dtype])
             if not ok:
                 raise AssertionError(
-                    f"ssd_scan_bwd differs from its plain version on "
-                    f"{shape} {dtype}: {frac} of a gradient's largest")
-            worst[dtype] = max(worst.get(dtype, 0.0), frac)
+                    f"ssd_scan_bwd ({body}) differs from its plain version "
+                    f"on {shape} {dtype}: {frac} of a gradient's largest")
+            worst[key] = max(worst.get(key, 0.0), frac)
             cases += 1
     torch.cuda.synchronize()
+    assert set(bodies) == {"mma bfloat16", "fma bfloat16", "fma float32"}, \
+        bodies
     emit("ssd_scan_bwd_small", cases=cases, worst_frac_of_leaf_max=worst,
-         tolerance=LM_TOL)
+         tolerance=LM_TOL, ssd_scan_bwd_bodies=bodies)
+
+
+def _ssd_chunk(inp) -> int:
+    """The chunk ssd_scan uses on these inputs."""
+    from repro_torch.kernels.ssd_scan.ref import chunk_len
+    return chunk_len(inp["xbar"].shape[1], inp["chunk"])
 
 
 def _ssd_body(inp) -> str:
     """The body ssd_scan runs on these inputs: "mma" or "fma"."""
     from repro_torch.kernels.ssd_scan.ops import ssd_scan_body
-    from repro_torch.kernels.ssd_scan.ref import chunk_len
-    s = inp["xbar"].shape[1]
-    return ssd_scan_body(chunk_len(s, inp["chunk"]), inp["Bm"].shape[-1],
+    return ssd_scan_body(_ssd_chunk(inp), inp["Bm"].shape[-1],
                          inp["xbar"].dtype)
+
+
+def _ssd_bwd_body(inp) -> str:
+    """The body ssd_scan_bwd runs on these inputs: "mma" or "fma"."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_bwd_body
+    return ssd_scan_bwd_body(_ssd_chunk(inp), inp["Bm"].shape[-1],
+                             inp["xbar"].dtype)
 
 
 def _lm_entry(torch, np, name, inp, note=None):
@@ -3428,7 +3461,9 @@ def ssd_bwd_entry(torch, np, inp):
     forward, the plain backward, and the design it replaced — autograd
     through ``ssd_chunk_scan_ref`` recomputed on the card; bounded by
     :func:`_ssd_bwd_bound`; the device ms of each of its launches; the
-    allocator's peak of the wrapper's backward and of the recompute."""
+    allocator's peak of the wrapper's backward and of the recompute.  On
+    bf16 inputs the kernel must run its tensor-core body and stay within
+    1.5 times the plain backward's distance from float64."""
     from repro_torch.kernels.ssd_scan.ops import (_scan_bwd,
                                                   launch_ssd_scan_bwd,
                                                   ssd_chunk_scan)
@@ -3471,6 +3506,10 @@ def ssd_bwd_entry(torch, np, inp):
     plain_frac, plain_err, _ = _leaf_close(
         torch, tuple(g.double() for g in want), truth, tol)
     del got, want, truth
+    body = _ssd_bwd_body(inp)
+    if dtype == "bfloat16":
+        assert body == "mma", body
+        assert f64_frac <= 1.5 * plain_frac, (f64_frac, plain_frac)
 
     outs = [torch.empty_like(t) for t in (x, al, bm, cm)]
     launch = lambda: launch_ssd_scan_bwd(x, al, bm, cm, dy, dh, *outs, q)
@@ -3498,8 +3537,8 @@ def ssd_bwd_entry(torch, np, inp):
         replaces=LM_REPLACES["ssd_scan_bwd"], launches=None,
         max_abs_err=err, ms=min(ms, ms2), plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-        shape=list(x.shape), n=n, chunk=chunk, dtype=dtype, tolerance=tol,
-        tolerance_of="each gradient's largest entry",
+        shape=list(x.shape), n=n, chunk=chunk, dtype=dtype, body=body,
+        tolerance=tol, tolerance_of="each gradient's largest entry",
         max_frac_of_leaf_max=frac, flops=flops, bytes=nbytes,
         ms_repeats=[ms, ms2],
         wrapper_ms=both_ms - fwd_ms, forward_and_backward_ms=both_ms,
@@ -3522,9 +3561,10 @@ def train_mamba2_phase(torch, np):
     SSD heads x 64, N 128, chunks of 128, vocab 50,280 tied; f32
     parameters, bf16 compute), its depth cut to 16 of 64 layers, 4 AdamW
     steps on 1 x 2,048 tokens of SyntheticLM: loss, step ms, tokens/s,
-    peak memory, 16 ssd_scan and 16 ssd_scan_bwd launches a step, and no
+    peak memory, 16 ssd_scan and 16 ssd_scan_bwd launches a step, no
     call of the plain version (a counter round ``ops.ssd_chunk_scan_ref``
-    reads 0).  Then, on the inputs of the run's first ssd_scan call (B=1,
+    reads 0), and both kernels' tensor-core bodies at the run's shape.
+    Then, on the inputs of the run's first ssd_scan call (B=1,
     S=2,048, H=80, P=64, N=128, bf16, the tensor-core body): the wrapper
     held against its plain version (bf16 2e-2) and against float64,
     timed; and the backward kernel's entry (:func:`ssd_bwd_entry`).
@@ -3578,6 +3618,10 @@ def train_mamba2_phase(torch, np):
             r["launches"]
     assert not plain_calls, len(plain_calls)
     assert all(bool(torch.isfinite(p).all()) for p in params.values())
+    # the training shape runs both kernels' tensor-core bodies
+    bodies = {"ssd_scan": _ssd_body(captured),
+              "ssd_scan_bwd": _ssd_bwd_body(captured)}
+    assert bodies == {"ssd_scan": "mma", "ssd_scan_bwd": "mma"}, bodies
     emit("train_mamba2", arch=cfg.name, published_layers=get_arch(
         cfg.name).num_layers, **_sizes(cfg, model), ssm_heads=cfg.ssm_heads,
          ssm_state=cfg.ssm_state, init_seconds=init_s, batch=TRAIN_BATCH,
@@ -3585,7 +3629,8 @@ def train_mamba2_phase(torch, np):
          steps=rows, median_step_ms_after_first=statistics.median(
              r["step_ms"] for r in rows[1:]),
          peak_memory_bytes=max(r["peak_memory_bytes"] for r in rows),
-         launches=launches, plain_version_calls=len(plain_calls))
+         launches=launches, plain_version_calls=len(plain_calls),
+         bodies=bodies)
     del model, params, opt, step_fn
     gc.collect()
     torch.cuda.empty_cache()

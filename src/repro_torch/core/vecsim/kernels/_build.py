@@ -42,9 +42,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry point -> argument types; every entry point that launches
 # returns the cudaError_t of cudaGetLastError() after its launch
-# (rt_ssd_scan_body launches nothing: it names the body a shape runs;
-# rt_rglru_scan_scratch, rt_rglru_scan_epochs and rt_ssd_scan_bwd_scratch
-# size the scans' scratch).
+# (rt_ssd_scan_body and rt_ssd_scan_bwd_body launch nothing: they name
+# the body a shape runs; rt_rglru_scan_scratch, rt_rglru_scan_epochs and
+# rt_ssd_scan_bwd_scratch size the scans' scratch).
 _SIGNATURES = {
     "rt_fused_sweep": [_P] * 11 + [_I] * 5 + [_P],
     "rt_deliver_sweep": [_P] * 6 + [_I] * 3 + [_P],
@@ -60,7 +60,8 @@ _SIGNATURES = {
     "rt_ssd_scan": [_P] * 6 + [_I] * 7 + [_P],
     "rt_ssd_scan_body": [_I] * 3,
     "rt_ssd_scan_bwd": [_P] * 11 + [_I] * 7 + [_P],
-    "rt_ssd_scan_bwd_scratch": [_I] * 6,
+    "rt_ssd_scan_bwd_scratch": [_I] * 7,
+    "rt_ssd_scan_bwd_body": [_I] * 3,
     "rt_flash_attention": [_P] * 4 + [_I] * 9 + [_F, _P],
 }
 

@@ -1,8 +1,9 @@
 // Shared helpers of the LM kernels (rglru_scan.cu, ssd_scan.cu,
-// flash_attention.cu): the element types they take and their
-// conversions to and from the f32 they compute in, and the tensor-core
-// building blocks of the bf16 bodies of flash_attention.cu and
-// ssd_scan.cu (cp.async copies, ldmatrix, mma.sync.m16n8k16).
+// ssd_scan_bwd.cu, flash_attention.cu): the element types they take and
+// their conversions to and from the f32 they compute in, and the
+// tensor-core building blocks of the bf16 bodies of flash_attention.cu,
+// ssd_scan.cu and ssd_scan_bwd.cu (cp.async copies, ldmatrix,
+// mma.sync.m16n8k16, the SSD kernels' hi/lo splits).
 //
 // Every LM kernel takes float32 or bfloat16 tensors (kDtypeF32,
 // kDtypeBF16, passed by the wrappers in repro_torch/kernels/*/ops.py)
@@ -63,6 +64,12 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                "l"(src), "r"(in ? 16 : 0));
 }
 
+// 4 bytes global -> shared
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -101,6 +108,51 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ---- the SSD kernels' tensor-core bodies (ssd_scan.cu, ssd_scan_bwd.cu)
+
+// Q and N at most, and the tile the bodies always compute: shorter Q and
+// N are zero-padded to it, so that every loop over it has a fixed trip
+// count and no guard between an ldmatrix and the products it feeds
+constexpr int kSsdTile = 128;
+constexpr int kSsdTiles = kSsdTile / 16;  // m16 tiles of Q or N
+
+// The body both SSD kernels run for a shape: the tensor cores for bf16
+// chunks of at most 128 steps and states of at most 128 rows, FMA on the
+// CUDA cores otherwise (TF32 keeps about three digits, too few for the
+// f32 tolerance of 2e-5).
+inline bool ssd_tensor_cores(int q, int n, int dtype) {
+  return dtype == kDtypeBF16 && q <= kSsdTile && n <= kSsdTile;
+}
+
+inline bool aligned16(const void* ptr) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+}
+
+// An f32 operand goes in as hi + lo, two products against the same bf16
+// fragment, keeping about 16 bits of it where one bf16 rounding keeps 8.
+
+// a = hi + lo for a pair: hi = bf16(a), lo = bf16(a - hi)
+__device__ __forceinline__ void split_bf16(float a0, float a1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a0, a1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a0 - hf.x, a1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// 2^x, flushed to 0 below 2^-126 (decay weights that small vanish against
+// their neighbours either way)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 }  // namespace repro_torch

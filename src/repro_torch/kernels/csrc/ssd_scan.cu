@@ -325,11 +325,6 @@ __global__ void __launch_bounds__(kSsdThreads)
 // ---- the tensor-core body --------------------------------------------- //
 constexpr int kSsdMmaWarps = 4;
 constexpr int kSsdMmaThreads = 32 * kSsdMmaWarps;
-// Q and N at most, and the tile the body always computes: shorter Q and
-// N are zero-padded to it, so that every loop over it has a fixed trip
-// count and no guard between an ldmatrix and the products it feeds
-constexpr int kSsdTile = 128;
-constexpr int kSsdTiles = kSsdTile / 16;  // m16 tiles of Q or N
 // row stride of the B and C tiles: an odd number of 16-byte chunks, so
 // the eight rows of an ldmatrix fall in different banks
 constexpr int kSsdLdn = kSsdTile + 8;
@@ -343,34 +338,6 @@ constexpr size_t ssd_mma_smem() {
   return 2 * (2 * static_cast<size_t>(kSsdTile) * kSsdLdn +
               3 * static_cast<size_t>(kSsdTile) * ssd_ldp<PS>()) +
          4 * (4 * static_cast<size_t>(kSsdTile) + 4);
-}
-
-// 4 bytes global -> shared
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
-               "l"(src));
-}
-
-// 2^x, flushed to 0 below 2^-126 (att entries that small vanish against
-// their neighbours either way)
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// a = hi + lo for a pair: hi = bf16(a), lo = bf16(a - hi)
-__device__ __forceinline__ void split_bf16(float a0, float a1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a0, a1);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(a0 - hf.x, a1 - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
 }
 
 // xb, y: (B, NC * Q, H, P) bf16; al: (B, NC * Q, H) f32; bm, cm: (B, NC *
@@ -708,16 +675,9 @@ __global__ void __launch_bounds__(kSsdMmaThreads, 2)
 }
 
 // ---- launchers ---------------------------------------------------------- //
-inline bool aligned16(const void* ptr) {
-  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
-}
-
-// The body a shape runs: the tensor cores for bf16 chunks of at most 128
-// steps and states of at most 128 rows, FMA otherwise.
+// The body a shape runs (lm_common.cuh's rule).
 inline int ssd_body(int q, int n, int dtype) {
-  return dtype == kDtypeBF16 && q <= kSsdTile && n <= kSsdTile
-             ? kSsdBodyMma
-             : kSsdBodyFma;
+  return ssd_tensor_cores(q, n, dtype) ? kSsdBodyMma : kSsdBodyFma;
 }
 
 template <int PS>

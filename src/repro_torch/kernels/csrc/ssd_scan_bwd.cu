@@ -17,9 +17,9 @@
 //   da_log  = the reverse cumsum of dl within the chunk.
 //
 // It is what autograd through the port's plain forward
-// (kernels/ssd_scan/ref.py, ssd_chunk_scan_ref) computes, every product
-// in f32 as there, for f32 and bf16 inputs; ssd_chunk_scan_bwd_ref in
-// the same file holds the formulas.  It replaces no TPU kernel of its
+// (kernels/ssd_scan/ref.py, ssd_chunk_scan_ref) computes for f32 and
+// bf16 inputs, every product accumulated in f32 as there;
+// ssd_chunk_scan_bwd_ref in the same file holds the formulas.  It replaces no TPU kernel of its
 // own: the TPU kernel ssd_scan_kernel (src/repro/kernels/ssd_scan/
 // kernel.py) has no backward, and the JAX package trains by
 // differentiating ssd_chunk_scan_ref (src/repro/models/ssm.py).
@@ -31,39 +31,70 @@
 // M^T dY on the lower triangle, B dH, dY H_prev^T, X dH^T and the two
 // state walks' terms; a chunk's C B^T, S B and S^T C, S the heads' dCB
 // summed), 0.0164 ms at the tensor cores' 989 TFLOP/s (chip_smoke.py's
-// _ssd_bwd_bound counts both).  This first design runs every product
-// on the CUDA cores in f32 (TF32 keeps about three digits and would
-// break the f32 tolerance of 2e-5), so the products and not the bytes
-// set its pace.  It is a pipeline of plain launches through an f32
-// scratch, each product a 64 x 64 output tile a block of 256 threads
-// (4 x 4 outputs a thread, staged 32 deep through shared memory, the
-// next step's loads in flight during the current step's products but in
-// dx, which keeps three accumulator tiles), so that every launch fills
-// the card whatever the shape:
+// _ssd_bwd_bound counts both).  It is a pipeline of launches through an
+// f32 scratch, so that every launch fills the card whatever the shape:
 //
-//   1. decay: l, e^l and w of every (b, chunk, h), a thread each, l
-//      summed in order as the forward sums it;
+//   1. decay: l, e^l and w of every (b, chunk, h);
 //   2. chunk_state: each chunk's own state terms B^T diag(w) X and
-//      C^T diag(e^l) dY (N x P, a block a tile and head);
+//      C^T diag(e^l) dY (N x P a head);
 //   3. state_scan: a block a (b, h, 1,024 cells of the state) walks the
 //      chunks forward (H_prev of each chunk) and back from dh (dH of
 //      each), in place, with each slice's share of <H_prev, dH>;
 //   4. cb: C B^T of each chunk's lower triangle, shared by the heads;
-//   5. dcb: dY X^T on the lower tiles, for a group of 8 heads a block:
-//      dCB summed over the group's heads in registers (a partial per
-//      group, so no f32 atomic is used and the sums are deterministic),
-//      each head's G summed along its rows and columns;
-//   6. dx: M^T dY (M from C B^T and l as it is staged) + diag(w) B dH,
-//      with C H_prev; r and the e^l <dY, C H_prev> term summed along P;
-//   7. dl: dl from those sums, then da_log, a thread a (b, chunk, h);
+//   5. dcb: dY X^T on the lower triangle, for a group of 8 heads a
+//      block: dCB summed over the group's heads in registers (a partial
+//      per group, so no f32 atomic is used and the sums are
+//      deterministic), each head's G summed along its rows and columns;
+//   6. dx: M^T dY (M from C B^T and l) + diag(w) B dH, with C H_prev; r
+//      and the e^l <dY, C H_prev> term summed along P;
+//   7. dl: dl from those sums, then da_log;
 //   8. dbc: dC = S B + sum_h diag(e^l) dY H_prev^T and dB = S^T C +
-//      sum_h diag(w) X dH^T, S = the groups' dCB summed as it is staged,
-//      the head sums split by group into an f32 partial;
+//      sum_h diag(w) X dH^T, S = the groups' dCB summed in order, the
+//      head sums split by group into an f32 partial;
 //   9. reduce: the groups' partials summed in order, cast to Bm's type.
 //
-// The scratch (rt_ssd_scan_bwd_scratch f32 words; at the training shape
-// 117 MB, two (B, NC, H, N, P) states among it) is the caller's and is
-// dropped when the backward returns; nothing is saved from the forward.
+// Two bodies run those steps, chosen by the shape alone as ssd_scan.cu
+// chooses its forward's (rt_ssd_scan_bwd_body reports which):
+//
+//   * bf16 with Q <= 128 and N <= 128 (the main path's): the products of
+//     steps 2, 4, 5, 6 and 8 on mma.sync.m16n8k16, bf16 in and f32
+//     accumulated, fed by ldmatrix from cp.async-staged tiles zero-padded
+//     to 128 rows of Q and N and 64 columns of P, so that no guard
+//     separates an ldmatrix from its mma (the forward's lesson).  A bf16
+//     input goes in as it is; an f32 intermediate goes in as its hi/lo
+//     split, two products against the same bf16 fragment (about 16 bits
+//     kept where one bf16 rounding keeps 8): M = CB o L, built and split
+//     in registers from CB and l; S, split as it is summed from the
+//     groups' partials; the states H_prev and dH, split as they are
+//     staged; and the weighted w X and e^l dY of step 2, whose weight
+//     runs along the reduction, split in registers.  diag(w) and
+//     diag(e^l) that scale an output's rows are applied after the
+//     product, so the bf16 side stays exact.  On the card the launches
+//     were bound by the latency of their loads, not by the products, so
+//     each keeps its loads in flight ahead of its products: chunk_state
+//     and dcb walk a group of heads with the next head's tiles in flight
+//     (chunk_state's B or C tile and dcb's CB staged once), dbc the same
+//     with the next head's state loaded into registers, dx reads CB a
+//     k-step ahead; and each weighted X is split by one warp only.  The
+//     e^l <dY, C H_prev> term of dl comes from dbc's dY H_prev^T (the
+//     rows of C o e^l dY H_prev^T summed), so dx keeps neither C nor
+//     H_prev and two of its blocks fit an SM; dl runs after dbc.  Steps
+//     1 and 7 are a warp a (b, c, h) (four steps a lane and a warp scan,
+//     as the forward's warp 0 sums l); G's sums need no tiles (each row
+//     tile belongs to one warp, each column's shares are summed in order
+//     through shared memory).
+//   * float32, or bf16 with a larger Q or N: every product on the CUDA
+//     cores in f32 (TF32 keeps about three digits and would break the
+//     f32 tolerance of 2e-5), a 64 x 64 output tile a block of 256
+//     threads (4 x 4 outputs a thread, staged 32 deep through shared
+//     memory, the next step's loads in flight during the current step's
+//     products but in dx, which keeps three accumulator tiles); steps 1
+//     and 7 a thread a (b, c, h).
+//
+// The scratch (rt_ssd_scan_bwd_scratch f32 words, 117 MB at the training
+// shape for either body, two (B, NC, H, N, P) states among it) is the
+// caller's and is dropped when the backward returns; nothing is saved
+// from the forward.
 
 #include "lm_common.cuh"
 
@@ -723,20 +754,1014 @@ __global__ void __launch_bounds__(kBwdThreads)
   (is_b ? db : dc)[idx] = from_f32<T>(acc);
 }
 
+// ======================================================================= //
+// The tensor-core body (bf16, Q <= 128, N <= 128): steps 1', 2', 4', 5',
+// 6', 7' and 8' below, with steps 3 and 9 above.  P is cut into tiles of
+// 64 (kTile), so the partial sums keep the FMA body's layout.
+// ======================================================================= //
+constexpr int kBwdBodyFma = 0;
+constexpr int kBwdBodyMma = 1;
+constexpr int kMmaPt = kTile;                // the P tile
+// row strides of 128- and 64-wide bf16 tiles: odd numbers of 16-byte
+// chunks, so the eight rows of an ldmatrix fall in different banks
+constexpr int kLdT = kSsdTile + 8;
+constexpr int kLdP = kMmaPt + 8;
+constexpr int kRowWarps = 4;                 // warps a block of steps 1, 7
+constexpr unsigned kFull = 0xffffffffu;
+
+// The body a shape runs (lm_common.cuh's rule, the forward's).
+inline int ssd_bwd_body(int q, int n, int dtype) {
+  return ssd_tensor_cores(q, n, dtype) ? kBwdBodyMma : kBwdBodyFma;
+}
+
+// ldmatrix row addresses of a lane in a 16 x 16 block: (lrow_a, lcol_a)
+// for A row-major and B [k][n] transposed, (lrow_b, lcol_b) for B [n][k]
+// and A [k][m] transposed
+__device__ __forceinline__ int lrow_a() {
+  const int l = threadIdx.x & 31;
+  return (l & 7) + ((l >> 3) & 1) * 8;
+}
+__device__ __forceinline__ int lcol_a() { return ((threadIdx.x & 31) >> 4) * 8; }
+__device__ __forceinline__ int lrow_b() {
+  const int l = threadIdx.x & 31;
+  return (l & 7) + (l >> 4) * 8;
+}
+__device__ __forceinline__ int lcol_b() { return ((threadIdx.x >> 3) & 1) * 8; }
+
+// A of rows m0.. and k0.. of a row-major [m][k] tile
+__device__ __forceinline__ void lda(uint32_t (&a)[4], const bf16* t, int ld,
+                                    int m0, int k0) {
+  ldsm_x4(a, smem_addr(t + (m0 + lrow_a()) * ld + k0 + lcol_a()));
+}
+// A of rows m0.. and k0.. from a [k][m] tile
+__device__ __forceinline__ void lda_t(uint32_t (&a)[4], const bf16* t, int ld,
+                                      int m0, int k0) {
+  ldsm_x4_trans(a, smem_addr(t + (k0 + lrow_b()) * ld + m0 + lcol_b()));
+}
+// B of k0.. for the n8 tiles n0 (b[0], b[1]) and n0 + 8 (b[2], b[3]), from
+// a [n][k] tile
+__device__ __forceinline__ void ldb_nk(uint32_t (&b)[4], const bf16* t,
+                                       int ld, int n0, int k0) {
+  ldsm_x4(b, smem_addr(t + (n0 + lrow_b()) * ld + k0 + lcol_b()));
+}
+// the same from a [k][n] tile
+__device__ __forceinline__ void ldb_kn(uint32_t (&b)[4], const bf16* t,
+                                       int ld, int n0, int k0) {
+  ldsm_x4_trans(b, smem_addr(t + (k0 + lrow_a()) * ld + n0 + lcol_a()));
+}
+
+// c[0..1] += a b of the n8 tiles b[0..1] and b[2..3]
+__device__ __forceinline__ void mma2(float (&c)[2][4], const uint32_t (&a)[4],
+                                     const uint32_t (&b)[4]) {
+  mma_bf16(c[0], a, b[0], b[1]);
+  mma_bf16(c[1], a, b[2], b[3]);
+}
+
+// Rows [0, R) and columns [0, C) of a bf16 tile (row stride ld) from the
+// rows of src (row stride sld): (r, c) from src when r < rv and c < cv,
+// zero past them.  vec: 16-byte cp.async copies (cv and sld multiples of
+// 8, src 16-byte aligned), in flight until cp_async_wait; else element
+// copies.  Every thread of the block calls it.
+template <int R, int C>
+__device__ __forceinline__ void stage(bf16* t, int ld, const bf16* src,
+                                      size_t sld, int rv, int cv, int vec) {
+  if (vec) {
+    constexpr int kChunks = C / 8;
+    for (int i = threadIdx.x; i < R * kChunks; i += blockDim.x) {
+      const int r = i / kChunks, c = (i % kChunks) * 8;
+      const bool in = r < rv && c < cv;
+      cp_async16(smem_addr(t + r * ld + c), in ? src + r * sld + c : src, in);
+    }
+  } else {
+    const bf16 zero = __float2bfloat16(0.0f);
+    for (int i = threadIdx.x; i < R * C; i += blockDim.x) {
+      const int r = i / C, c = i % C;
+      t[r * ld + c] = r < rv && c < cv ? src[r * sld + c] : zero;
+    }
+  }
+}
+
+// Rows [0, R) and columns [0, 64) of an f32 plane (row stride sld),
+// zero past rv rows and cv columns, THREADS threads each holding its
+// share in registers (load_plane; 16-byte loads when vec4: sld and cv
+// multiples of 4, src 16-byte aligned), then stored as the plane's hi
+// and lo bf16 tiles (store_split, row stride kLdP).  Split so that a
+// block can start the next plane's loads before it computes on this one.
+template <int R, int THREADS>
+struct PlaneRegs {
+  static constexpr int kPer = R * (kMmaPt / 4) / THREADS;
+  float4 v[kPer];
+};
+
+template <int R, int THREADS>
+__device__ __forceinline__ void load_plane(PlaneRegs<R, THREADS>& pr,
+                                           const float* src, int sld, int rv,
+                                           int cv, int vec4) {
+#pragma unroll
+  for (int u = 0; u < PlaneRegs<R, THREADS>::kPer; ++u) {
+    const int i = threadIdx.x + u * THREADS;
+    const int r = i / (kMmaPt / 4), c = 4 * (i % (kMmaPt / 4));
+    const float* at = src + static_cast<size_t>(r) * sld + c;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (r < rv) {
+      if (vec4) {
+        if (c < cv) v = *reinterpret_cast<const float4*>(at);
+      } else {
+        if (c < cv) v.x = at[0];
+        if (c + 1 < cv) v.y = at[1];
+        if (c + 2 < cv) v.z = at[2];
+        if (c + 3 < cv) v.w = at[3];
+      }
+    }
+    pr.v[u] = v;
+  }
+}
+
+template <int R, int THREADS>
+__device__ __forceinline__ void store_split(const PlaneRegs<R, THREADS>& pr,
+                                            bf16* hi, bf16* lo) {
+#pragma unroll
+  for (int u = 0; u < PlaneRegs<R, THREADS>::kPer; ++u) {
+    const int i = threadIdx.x + u * THREADS;
+    const int r = i / (kMmaPt / 4), c = 4 * (i % (kMmaPt / 4));
+    uint2 h, l;
+    split_bf16(pr.v[u].x, pr.v[u].y, h.x, l.x);
+    split_bf16(pr.v[u].z, pr.v[u].w, h.y, l.y);
+    *reinterpret_cast<uint2*>(hi + r * kLdP + c) = h;
+    *reinterpret_cast<uint2*>(lo + r * kLdP + c) = l;
+  }
+}
+
+// out[0..1] = (a, b) where in (and b where in1): one 8-byte store when
+// pair (an even row stride and column), else two
+__device__ __forceinline__ void store_pair(float* out, float a, float b,
+                                           bool in, bool in1, bool pair) {
+  if (!in) return;
+  if (pair && in1) {
+    *reinterpret_cast<float2*>(out) = make_float2(a, b);
+  } else {
+    out[0] = a;
+    if (in1) out[1] = b;
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// ---- 1'. decay: a warp a (b, c, h) -------------------------------------- //
+__global__ void __launch_bounds__(32 * kRowWarps)
+    ssd_bwd_decay_warp_kernel(const float* __restrict__ al,
+                              float* __restrict__ l, float* __restrict__ el,
+                              float* __restrict__ wl, long long rows, int q,
+                              int nh) {
+  const long long idx = static_cast<long long>(blockIdx.x) * kRowWarps +
+                        threadIdx.x / 32;
+  if (idx >= rows) return;  // the whole warp
+  const int lane = threadIdx.x & 31;
+  const long long bc = idx / nh;
+  const int hh = static_cast<int>(idx % nh);
+  const float* a = al + static_cast<size_t>(bc) * q * nh + hh;
+  float v[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int i = 4 * lane + k;
+    v[k] = i < q ? a[static_cast<size_t>(i) * nh] : 0.0f;
+  }
+  v[1] += v[0];
+  v[2] += v[1];
+  v[3] += v[2];
+  float incl = v[3];
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float u = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += u;
+  }
+  const float excl = incl - v[3];
+  // l_{q-1}: the zero decays past q keep it
+  const float lq = __shfl_sync(kFull, incl, 31);
+  const size_t base = static_cast<size_t>(idx) * q;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int i = 4 * lane + k;
+    if (i < q) {
+      const float li = v[k] + excl;
+      l[base + i] = li;
+      el[base + i] = expf(li);
+      wl[base + i] = expf(lq - li);
+    }
+  }
+}
+
+// ---- 2'. chunk_state ---------------------------------------------------- //
+// hs = B^T diag(w) X (z = 0), gs = C^T diag(e^l) dY (z = 1).  Block (b,
+// c), a group of heads, z; warp w all of N and the columns 16 w.. of the
+// P tile, so each weighted X is split once, in registers.  The chunk's B
+// (C) tile is staged once; each (head, P tile) step's X (dY) tile and
+// weights are double-buffered.  A = B^T by ldmatrix.trans of the [j][n]
+// tile.
+constexpr int kCsThreads = 128;
+constexpr size_t kCsSmem =
+    2 * (static_cast<size_t>(kSsdTile) * kLdT + 2 * kSsdTile * kLdP) +
+    2 * 4 * kSsdTile;
+
+__global__ void __launch_bounds__(kCsThreads, 3)
+    ssd_bwd_chunk_state_mma_kernel(const bf16* __restrict__ xb,
+                                   const bf16* __restrict__ dy,
+                                   const bf16* __restrict__ bm,
+                                   const bf16* __restrict__ cm,
+                                   const float* __restrict__ el,
+                                   const float* __restrict__ wl,
+                                   float* __restrict__ hs,
+                                   float* __restrict__ gs, int q, int nh,
+                                   int p, int n, int vec) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* bt = reinterpret_cast<bf16*>(smem);  // (128, kLdT) B or C, [j][n]
+  bf16* xts = bt + kSsdTile * kLdT;  // two (128, kLdP) X or dY, [j][p]
+  float* wts = reinterpret_cast<float*>(xts + 2 * kSsdTile * kLdP);
+  const size_t bc = blockIdx.x;
+  const int h0 = blockIdx.y * kHeadsPerGroup;
+  const int h_end = min(nh, h0 + kHeadsPerGroup);
+  const bool grad = blockIdx.z == 1;
+  const int tp = cdiv(p, kMmaPt), steps = (h_end - h0) * tp;
+  const size_t row0 = bc * q, ld = static_cast<size_t>(nh) * p;
+  const bf16* src = grad ? dy : xb;
+  const float* wv = grad ? el : wl;
+  stage<kSsdTile, kSsdTile>(bt, kLdT, (grad ? cm : bm) + row0 * n, n, q, n,
+                            vec);
+  // step st's X (dY) tile and weights into buffer st % 2
+  const auto prefetch = [&](int st) {
+    const size_t bch = bc * nh + h0 + st / tp;
+    const int pt = (st % tp) * kMmaPt;
+    stage<kSsdTile, kMmaPt>(xts + (st % 2) * kSsdTile * kLdP, kLdP,
+                            src + row0 * ld + (bch % nh) * p + pt, ld, q,
+                            p - pt, vec);
+    for (int i = threadIdx.x; i < kSsdTile; i += kCsThreads) {
+      float* w = wts + (st % 2) * kSsdTile + i;
+      if (i < q)
+        cp_async4(smem_addr(w), wv + bch * q + i);
+      else
+        *w = 0.0f;
+    }
+    cp_async_commit();
+  };
+  prefetch(0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  for (int st = 0; st < steps; ++st) {
+    if (st + 1 < steps) {
+      prefetch(st + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this step's tiles are in
+    const bf16* xt = xts + (st % 2) * kSsdTile * kLdP;
+    const float* wt = wts + (st % 2) * kSsdTile;
+    float acc[kSsdTiles][2][4] = {};
+#pragma unroll 2
+    for (int kk = 0; kk < kSsdTiles; ++kk) {
+      const int j0 = 16 * kk;
+      const float w0 = wt[j0 + 2 * t], w1 = wt[j0 + 2 * t + 1];
+      const float w2 = wt[j0 + 2 * t + 8], w3 = wt[j0 + 2 * t + 9];
+      uint32_t xf[4];
+      ldb_kn(xf, xt, kLdP, 16 * warp, j0);
+      uint32_t whi[2][2], wlo[2][2];  // [n8 tile][k 2t.. or 2t + 8..]
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const float2 xa = unpack_bf16(xf[2 * hf]);      // k 2t, 2t + 1
+        const float2 xc = unpack_bf16(xf[2 * hf + 1]);  // k 2t + 8, 2t + 9
+        split_bf16(xa.x * w0, xa.y * w1, whi[hf][0], wlo[hf][0]);
+        split_bf16(xc.x * w2, xc.y * w3, whi[hf][1], wlo[hf][1]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < kSsdTiles; ++mi) {
+        uint32_t af[4];
+        lda_t(af, bt, kLdT, 16 * mi, j0);
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          mma_bf16(acc[mi][hf], af, whi[hf][0], whi[hf][1]);
+          mma_bf16(acc[mi][hf], af, wlo[hf][0], wlo[hf][1]);
+        }
+      }
+    }
+    const size_t bch = bc * nh + h0 + st / tp;
+    const int p0 = (st % tp) * kMmaPt + 16 * warp;
+    float* out = (grad ? gs : hs) + bch * n * p;
+#pragma unroll
+    for (int mi = 0; mi < kSsdTiles; ++mi)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int row = 16 * mi + g + 8 * hr;
+          const int col = p0 + 8 * hf + 2 * t;
+          store_pair(out + static_cast<size_t>(row) * p + col,
+                     acc[mi][hf][2 * hr], acc[mi][hf][2 * hr + 1],
+                     row < n && col < p, col + 1 < p, p % 2 == 0);
+        }
+    __syncthreads();  // buffer st % 2 is free again
+  }
+}
+
+// ---- 4'. cb ------------------------------------------------------------- //
+// cb as step 4 writes it; block (b, c), warp w the row tiles w and 7 - w
+// (the lower triangle's column tiles even across the warps).
+constexpr int kCbThreads = 128;
+constexpr size_t kCbSmem = 2 * 2 * static_cast<size_t>(kSsdTile) * kLdT;
+
+__global__ void __launch_bounds__(kCbThreads)
+    ssd_bwd_cb_mma_kernel(const bf16* __restrict__ bm,
+                          const bf16* __restrict__ cm, float* __restrict__ cb,
+                          int q, int n, int vec) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ct = reinterpret_cast<bf16*>(smem);  // (128, kLdT) C, [i][n]
+  bf16* bt = ct + kSsdTile * kLdT;           // (128, kLdT) B, [j][n]
+  const size_t row0 = static_cast<size_t>(blockIdx.x) * q;
+  stage<kSsdTile, kSsdTile>(ct, kLdT, cm + row0 * n, n, q, n, vec);
+  stage<kSsdTile, kSsdTile>(bt, kLdT, bm + row0 * n, n, q, n, vec);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll 1
+  for (int pass = 0; pass < 2; ++pass) {
+    const int rt = pass ? kSsdTiles - 1 - warp : warp, i0 = 16 * rt;
+    uint32_t cf[kSsdTiles][4];
+#pragma unroll
+    for (int kk = 0; kk < kSsdTiles; ++kk) lda(cf[kk], ct, kLdT, i0, 16 * kk);
+#pragma unroll 1
+    for (int kc = 0; kc <= rt; ++kc) {
+      float s[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < kSsdTiles; ++kk) {
+        uint32_t bf[4];
+        ldb_nk(bf, bt, kLdT, 16 * kc, 16 * kk);
+        mma2(s, cf[kk], bf);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int i = i0 + g + 8 * hr, j = 16 * kc + 8 * nt + 2 * t;
+          store_pair(cb + (row0 + i) * q + j, j <= i ? s[nt][2 * hr] : 0.0f,
+                     j + 1 <= i ? s[nt][2 * hr + 1] : 0.0f, i < q && j < q,
+                     j + 1 < q, q % 2 == 0);
+        }
+    }
+  }
+}
+
+// ---- 5'. dcb ------------------------------------------------------------ //
+// sp as step 5 writes it; rowg, colg: (B, NC, H, Q), G's sums along each
+// row and each column.  Block (b, c), a group of heads; warp w the row
+// tiles w and 7 - w, its 9 column tiles k = 0..8 (k <= w: row tile w,
+// column tile k; else row tile 7 - w, column tile k - w - 1).  dY X^T
+// takes bf16 operands as they are; the group's dCB stays in registers.
+// The chunk's CB (its lower triangle, packed by rows) is staged once; the
+// (head, P tile) steps' dY and X tiles and l are double-buffered: the
+// next step's copies are in flight while this one's products run.
+constexpr int kDcbThreads = 128;
+constexpr int kDcbCols = kSsdTiles + 1;  // column tiles a warp owns
+constexpr int kTri = kSsdTile * (kSsdTile + 1) / 2;
+constexpr size_t kDcbSmem = 2 * 4 * static_cast<size_t>(kSsdTile) * kLdP +
+                            4 * (kTri + 2 * kSsdTile +
+                                 (kDcbThreads / 32) * 2 * kSsdTile);
+
+__global__ void __launch_bounds__(kDcbThreads, 2)
+    ssd_bwd_dcb_mma_kernel(const bf16* __restrict__ xb,
+                           const bf16* __restrict__ dy,
+                           const float* __restrict__ cb,
+                           const float* __restrict__ l,
+                           float* __restrict__ sp, float* __restrict__ rowg,
+                           float* __restrict__ colg, int q, int nh, int p,
+                           int vec) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  // buffer u: dY (128, kLdP) [i][p] at tiles + 2 u, X [j][p] at 2 u + 1
+  bf16* tiles = reinterpret_cast<bf16*>(smem);
+  float* cbt = reinterpret_cast<float*>(tiles + 4 * kSsdTile * kLdP);
+  float* ls = cbt + kTri;  // l of buffer u at ls + 128 u
+  // (warps, 2 row tiles, 128): each row tile's share of G's column sums
+  float* colp = ls + 2 * kSsdTile;
+  const size_t bc = blockIdx.x;
+  const int groups = gridDim.y, grp = blockIdx.y;
+  const int h0 = grp * kHeadsPerGroup, h_end = min(nh, h0 + kHeadsPerGroup);
+  const int tp = cdiv(p, kMmaPt), steps = (h_end - h0) * tp;
+  const size_t row0 = bc * q, ld = static_cast<size_t>(nh) * p;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // CB_ij (j <= i) at cbt[i (i + 1) / 2 + j], zero past q
+  const float* cbc = cb + row0 * q;
+  for (int e = tid; e < kSsdTile * kSsdTile; e += kDcbThreads) {
+    const int i = e / kSsdTile, j = e % kSsdTile;
+    if (j > i) continue;
+    float* at = cbt + i * (i + 1) / 2 + j;
+    if (i < q)
+      cp_async4(smem_addr(at), cbc + static_cast<size_t>(i) * q + j);
+    else
+      *at = 0.0f;
+  }
+  // step st's dY and X tiles and l into buffer st % 2
+  const auto stage_step = [&](int st) {
+    const int hh = h0 + st / tp, pt = (st % tp) * kMmaPt;
+    bf16* yt = tiles + (st % 2) * 2 * kSsdTile * kLdP;
+    const size_t off = row0 * ld + hh * p + pt;
+    stage<kSsdTile, kMmaPt>(yt, kLdP, dy + off, ld, q, p - pt, vec);
+    stage<kSsdTile, kMmaPt>(yt + kSsdTile * kLdP, kLdP, xb + off, ld, q,
+                            p - pt, vec);
+    for (int i = tid; i < kSsdTile; i += kDcbThreads) {
+      float* at = ls + (st % 2) * kSsdTile + i;
+      if (i < q)
+        cp_async4(smem_addr(at), l + (bc * nh + hh) * q + i);
+      else
+        *at = 0.0f;
+    }
+    cp_async_commit();
+  };
+  stage_step(0);
+  float s[kDcbCols][2][4] = {};
+  float d[kDcbCols][2][4];
+  for (int st = 0; st < steps; ++st) {
+    const int hh = h0 + st / tp, pt = (st % tp) * kMmaPt;
+    if (st + 1 < steps) {
+      stage_step(st + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // step st's tiles (and CB) are in
+    const bf16* yt = tiles + (st % 2) * 2 * kSsdTile * kLdP;
+    const bf16* xt = yt + kSsdTile * kLdP;
+    if (pt == 0) {
+#pragma unroll
+      for (int k = 0; k < kDcbCols; ++k)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) d[k][nt][e] = 0.0f;
+    }
+    uint32_t af[kMmaPt / 16][4];
+#pragma unroll
+    for (int k = 0; k < kDcbCols; ++k) {
+      const bool second = k > warp;
+      const int rt = second ? kSsdTiles - 1 - warp : warp;
+      const int kc = second ? k - warp - 1 : k;
+      if (k == 0 || k == warp + 1) {
+#pragma unroll
+        for (int kk = 0; kk < kMmaPt / 16; ++kk)
+          lda(af[kk], yt, kLdP, 16 * rt, 16 * kk);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kMmaPt / 16; ++kk) {
+        uint32_t bf[4];
+        ldb_nk(bf, xt, kLdP, 16 * kc, 16 * kk);
+        mma2(d[k], af[kk], bf);
+      }
+    }
+    if (pt + kMmaPt >= p) {
+      // the head's last P tile: dCB = (dY X^T) o L on j <= i (masked
+      // before exp), summed into the group's; G = dCB o CB summed along
+      // its rows and columns
+      const size_t bch = bc * nh + hh;
+      const float* lh = ls + (st % 2) * kSsdTile;
+      float rs[2][2] = {};  // [row tile w, 7 - w][row g, g + 8]
+#pragma unroll
+      for (int k = 0; k < kDcbCols; ++k) {
+        const bool second = k > warp;
+        const int rt = second ? kSsdTiles - 1 - warp : warp;
+        const int kc = second ? k - warp - 1 : k;
+        float cs[2][2] = {};  // [n8 tile][column 2t, 2t + 1]
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 16 * rt + g + 8 * (e >> 1);
+            const int j = 16 * kc + 8 * nt + 2 * t + (e & 1);
+            // (within the tile's rows, so in the packed triangle for any j)
+            const float cbv = cbt[i * (i + 1) / 2 + j];
+            const float dcb =
+                i < q && j <= i
+                    ? d[k][nt][e] * exp2_ftz((lh[i] - lh[j]) * kLog2e)
+                    : 0.0f;
+            s[k][nt][e] += dcb;
+            const float gv = dcb * cbv;
+            if (second)
+              rs[1][e >> 1] += gv;
+            else
+              rs[0][e >> 1] += gv;
+            cs[nt][e & 1] += gv;
+          }
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            float v = cs[nt][c];
+            v += __shfl_xor_sync(kFull, v, 4);
+            v += __shfl_xor_sync(kFull, v, 8);
+            v += __shfl_xor_sync(kFull, v, 16);
+            if (g == 0)
+              colp[(warp * 2 + second) * kSsdTile + 16 * kc + 8 * nt +
+                   2 * t + c] = v;
+          }
+      }
+#pragma unroll
+      for (int pass = 0; pass < 2; ++pass)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          float v = rs[pass][hr];
+          v += __shfl_xor_sync(kFull, v, 1);
+          v += __shfl_xor_sync(kFull, v, 2);
+          const int i =
+              16 * (pass ? kSsdTiles - 1 - warp : warp) + g + 8 * hr;
+          if (t == 0 && i < q) rowg[bch * q + i] = v;
+        }
+      __syncthreads();
+      // column j: the shares of the row tiles at or below its tile, in
+      // order
+      for (int j = tid; j < q; j += kDcbThreads) {
+        float acc = 0.0f;
+        for (int w = 0; w < kDcbThreads / 32; ++w)
+          for (int sl = 0; sl < 2; ++sl) {
+            const int rt = sl ? kSsdTiles - 1 - w : w;
+            if (rt >= j / 16) acc += colp[(w * 2 + sl) * kSsdTile + j];
+          }
+        colg[bch * q + j] = acc;
+      }
+    }
+    __syncthreads();  // buffer st % 2 and colp are free again
+  }
+  float* out = sp + (bc * groups + grp) * q * q;
+#pragma unroll
+  for (int k = 0; k < kDcbCols; ++k) {
+    const bool second = k > warp;
+    const int rt = second ? kSsdTiles - 1 - warp : warp;
+    const int kc = second ? k - warp - 1 : k;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int i = 16 * rt + g + 8 * hr;
+        const int j = 16 * kc + 8 * nt + 2 * t;
+        store_pair(out + static_cast<size_t>(i) * q + j, s[k][nt][2 * hr],
+                   s[k][nt][2 * hr + 1], i < q && j < q, j + 1 < q,
+                   q % 2 == 0);
+      }
+  }
+}
+
+// ---- 6'. dx ------------------------------------------------------------- //
+// dx and rp as step 6 writes them (e^l <dY, C H_prev> comes from step 8').
+// Block (b, c, h), a P tile; warp w the row tile w of dX.  B dH: B as it
+// is, dH split, diag(w) applied after the product; M^T dY: M = CB o L
+// split in registers as it is built from CB (read a k-step ahead) and l,
+// dY as it is.
+constexpr int kDxThreads = 256;
+constexpr size_t kDxSmem = 2 * static_cast<size_t>(kSsdTile) * kLdT +
+                           3 * 2 * static_cast<size_t>(kSsdTile) * kLdP +
+                           2 * 4 * kSsdTile;
+
+__global__ void __launch_bounds__(kDxThreads, 2)
+    ssd_bwd_dx_mma_kernel(const bf16* __restrict__ xb,
+                          const bf16* __restrict__ dy,
+                          const bf16* __restrict__ bm,
+                          const float* __restrict__ cb,
+                          const float* __restrict__ l,
+                          const float* __restrict__ wl,
+                          const float* __restrict__ gs, bf16* __restrict__ dx,
+                          float* __restrict__ rp, int q, int nh, int p, int n,
+                          int vec) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* bt = reinterpret_cast<bf16*>(smem);  // (128, kLdT) B, [j][n]
+  bf16* yt = bt + kSsdTile * kLdT;           // (128, kLdP) dY, [i][p]
+  bf16* dhh = yt + kSsdTile * kLdP;          // (128, kLdP) dH hi, [n][p]
+  bf16* dhl = dhh + kSsdTile * kLdP;         // dH lo
+  float* l2s = reinterpret_cast<float*>(dhl + kSsdTile * kLdP);
+  float* wls = l2s + kSsdTile;
+  const size_t bch = blockIdx.x;
+  const size_t bc = bch / nh, hh = bch % nh;
+  const int tp = gridDim.y, ptile = blockIdx.y, p0 = ptile * kMmaPt;
+  const size_t row0 = bc * q, ld = static_cast<size_t>(nh) * p;
+  stage<kSsdTile, kSsdTile>(bt, kLdT, bm + row0 * n, n, q, n, vec);
+  stage<kSsdTile, kMmaPt>(yt, kLdP, dy + row0 * ld + hh * p + p0, ld, q,
+                          p - p0, vec);
+  cp_async_commit();
+  {
+    PlaneRegs<kSsdTile, kDxThreads> dh_regs;
+    load_plane(dh_regs, gs + bch * n * p + p0, p, n, p - p0, p % 4 == 0);
+    for (int i = threadIdx.x; i < kSsdTile; i += kDxThreads) {
+      const bool in = i < q;
+      l2s[i] = in ? l[bch * q + i] * kLog2e : 0.0f;
+      wls[i] = in ? wl[bch * q + i] : 0.0f;
+    }
+    store_split(dh_regs, dhh, dhl);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int j0 = 16 * warp;
+  // M^T dY (a1) from the row tile's first k-step on; the A fragment of a
+  // k-step: register r holds rows j0 + g + 8 (r & 1), columns i0 + 2t +
+  // 8 (r >> 1) and the next; CB read a k-step ahead
+  const float* cbc = cb + row0 * q;
+  const auto load_cb = [&](int kk, float (&v)[8]) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int j = j0 + g + 8 * (r & 1);
+        const int i = 16 * kk + 2 * t + 8 * (r >> 1) + c;
+        v[2 * r + c] = kk < kSsdTiles && i >= j && i < q
+                           ? __ldg(cbc + static_cast<size_t>(i) * q + j)
+                           : 0.0f;
+      }
+  };
+  float cur[8];
+  load_cb(warp, cur);
+  // B dH (a2) over the padded N
+  float a2[8][4] = {};
+#pragma unroll 2
+  for (int kk = 0; kk < kSsdTiles; ++kk) {
+    uint32_t bf[4];
+    lda(bf, bt, kLdT, j0, 16 * kk);
+#pragma unroll
+    for (int pn = 0; pn < kMmaPt / 16; ++pn) {
+      uint32_t hi[4], lo[4];
+      ldb_kn(hi, dhh, kLdP, 16 * pn, 16 * kk);
+      ldb_kn(lo, dhl, kLdP, 16 * pn, 16 * kk);
+      mma_bf16(a2[2 * pn], bf, hi[0], hi[1]);
+      mma_bf16(a2[2 * pn + 1], bf, hi[2], hi[3]);
+      mma_bf16(a2[2 * pn], bf, lo[0], lo[1]);
+      mma_bf16(a2[2 * pn + 1], bf, lo[2], lo[3]);
+    }
+  }
+  float a1[8][4] = {};
+  const float lj[2] = {l2s[j0 + g], l2s[j0 + g + 8]};
+#pragma unroll 1
+  for (int kk = warp; kk < kSsdTiles; ++kk) {
+    const int i0 = 16 * kk;
+    float nxt[8];
+    load_cb(kk + 1, nxt);
+    // A (j, i) = M_ij = CB_ij exp(l_i - l_j) for i >= j, masked before
+    // exp, split
+    uint32_t ahi[4], alo[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int j = j0 + g + 8 * (r & 1);
+      float m[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int i = i0 + 2 * t + 8 * (r >> 1) + c;
+        m[c] = i >= j && i < q
+                   ? cur[2 * r + c] * exp2_ftz(l2s[i] - lj[r & 1])
+                   : 0.0f;
+      }
+      split_bf16(m[0], m[1], ahi[r], alo[r]);
+    }
+#pragma unroll
+    for (int pn = 0; pn < kMmaPt / 16; ++pn) {
+      uint32_t yf[4];
+      ldb_kn(yf, yt, kLdP, 16 * pn, i0);
+      mma_bf16(a1[2 * pn], ahi, yf[0], yf[1]);
+      mma_bf16(a1[2 * pn + 1], ahi, yf[2], yf[3]);
+      mma_bf16(a1[2 * pn], alo, yf[0], yf[1]);
+      mma_bf16(a1[2 * pn + 1], alo, yf[2], yf[3]);
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) cur[e] = nxt[e];
+  }
+  // dX = M^T dY + diag(w) B dH; r summed along the tile's P
+  const bf16* xh = xb + row0 * ld + hh * p;
+  bf16* dxh = dx + row0 * ld + hh * p;
+  float rsum[2] = {};
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int j = j0 + g + 8 * hr, pc = p0 + 8 * nt + 2 * t;
+      if (j >= q || pc >= p) continue;
+      const float w = wls[j];
+      const size_t at = static_cast<size_t>(j) * ld + pc;
+      const float d0 = a1[nt][2 * hr] + w * a2[nt][2 * hr];
+      const float d1 = a1[nt][2 * hr + 1] + w * a2[nt][2 * hr + 1];
+      if (vec) {  // pc + 1 < p, and a 4-byte boundary
+        *reinterpret_cast<__nv_bfloat162*>(dxh + at) =
+            __floats2bfloat162_rn(d0, d1);
+        const float2 xv = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(xh + at));
+        rsum[hr] += w * (xv.x * a2[nt][2 * hr] + xv.y * a2[nt][2 * hr + 1]);
+      } else {
+        dxh[at] = __float2bfloat16(d0);
+        rsum[hr] += w * to_f32(xh[at]) * a2[nt][2 * hr];
+        if (pc + 1 < p) {
+          dxh[at + 1] = __float2bfloat16(d1);
+          rsum[hr] += w * to_f32(xh[at + 1]) * a2[nt][2 * hr + 1];
+        }
+      }
+    }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float rv = rsum[hr];
+    rv += __shfl_xor_sync(kFull, rv, 1);
+    rv += __shfl_xor_sync(kFull, rv, 2);
+    const int j = j0 + g + 8 * hr;
+    if (t == 0 && j < q) rp[(bch * tp + ptile) * q + j] = rv;
+  }
+}
+
+// ---- 7'. dl: a warp a (b, c, h) ----------------------------------------- //
+// rowg and colg (B, NC, H, Q) as step 5' writes them, rp (B, NC, H, TP, Q)
+// as step 6' writes it, ip (B, NC, H, TN, Q) as step 8' writes it, hd as
+// step 3 does.  dl of the lane's four steps, then da by a reverse scan
+// along the lane's steps and down the lanes.
+__global__ void __launch_bounds__(32 * kRowWarps)
+    ssd_bwd_dl_warp_kernel(const float* __restrict__ rowg,
+                           const float* __restrict__ colg,
+                           const float* __restrict__ rp,
+                           const float* __restrict__ ip,
+                           const float* __restrict__ hd,
+                           const float* __restrict__ el, float* __restrict__ da,
+                           long long rows, int q, int nh, int tp, int tn,
+                           int slices) {
+  const long long idx = static_cast<long long>(blockIdx.x) * kRowWarps +
+                        threadIdx.x / 32;
+  if (idx >= rows) return;  // the whole warp
+  const int lane = threadIdx.x & 31;
+  const size_t bch = static_cast<size_t>(idx);
+  const size_t bc = bch / nh, hh = bch % nh;
+  const float* r = rp + bch * tp * q;
+  const float* in = ip + bch * tn * q;
+  float rsum = 0.0f, hdot = 0.0f;
+  for (int j = lane; j < tp * q; j += 32) rsum += r[j];
+  for (int s = lane; s < slices; s += 32) hdot += hd[bch * slices + s];
+  rsum = warp_sum(rsum);
+  hdot = warp_sum(hdot);
+  float d[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int i = 4 * lane + k;
+    d[k] = 0.0f;
+    if (i < q) {
+      d[k] = rowg[bch * q + i] - colg[bch * q + i];
+      for (int tt = 0; tt < tn; ++tt) d[k] += in[tt * q + i];
+      for (int tt = 0; tt < tp; ++tt) d[k] -= r[tt * q + i];
+      if (i == q - 1) d[k] += el[bch * q + i] * hdot + rsum;
+    }
+  }
+  // suffix sums of the lane's steps, then of the lanes above
+  d[2] += d[3];
+  d[1] += d[2];
+  d[0] += d[1];
+  float incl = d[0];
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float u = __shfl_down_sync(kFull, incl, o);
+    if (lane + o < 32) incl += u;
+  }
+  const float above = incl - d[0];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int i = 4 * lane + k;
+    if (i < q) da[(bc * q + i) * nh + hh] = d[k] + above;
+  }
+}
+
+// ---- 8'. dbc ------------------------------------------------------------ //
+// pc, pb as step 8 writes them; ip: (B, NC, H, TN, Q), e^l <dY, C H_prev>
+// summed over each tile of N.  Block (b, c), a tile of 64 columns of N,
+// z = 2 g + (0 dC, 1 dB); warp w the row tile w.  Group 0 first adds S B
+// (dC) or S^T C (dB), S split as it is summed from the groups' partials.
+// Then each (head, P tile) step adds dY H_prev^T (X dH^T), dY (X) as it
+// is and the state split, scaled by diag(e^l) (diag(w)) after the
+// product; the next step's copies and state loads are in flight during
+// this step's products.  The dC blocks also take e^l <dY, C H_prev> =
+// the rows of C o (e^l dY H_prev^T) summed, from the same product.
+constexpr int kDbcThreads = 256;
+constexpr int kDbcSPer = kSsdTile * kSsdTile / 2 / kDbcThreads;  // S pairs
+constexpr size_t kDbcHeadSmem = 2 * (3 * static_cast<size_t>(kSsdTile) *
+                                         kLdP +
+                                     2 * static_cast<size_t>(kMmaPt) * kLdP);
+constexpr size_t kDbcSSmem = 2 * (2 * static_cast<size_t>(kSsdTile) * kLdT +
+                                  static_cast<size_t>(kSsdTile) * kLdP);
+constexpr size_t kDbcSmem =
+    kDbcSSmem > kDbcHeadSmem ? kDbcSSmem : kDbcHeadSmem;
+
+__global__ void __launch_bounds__(kDbcThreads, 2)
+    ssd_bwd_dbc_mma_kernel(const bf16* __restrict__ xb,
+                           const bf16* __restrict__ dy,
+                           const bf16* __restrict__ bm,
+                           const bf16* __restrict__ cm,
+                           const float* __restrict__ sp,
+                           const float* __restrict__ el,
+                           const float* __restrict__ wl,
+                           const float* __restrict__ hs,
+                           const float* __restrict__ gs,
+                           float* __restrict__ pc, float* __restrict__ pb,
+                           float* __restrict__ ip, int q, int nh, int p,
+                           int n, int vec) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  // group 0's S phase: S hi and lo (128, kLdT) [i][j], B or C (128, kLdP)
+  bf16* sh = reinterpret_cast<bf16*>(smem);
+  bf16* sl = sh + kSsdTile * kLdT;
+  bf16* ot = sl + kSsdTile * kLdT;
+  // the steps, over the same bytes: dY or X (128, kLdP) [r][p] in two
+  // buffers, H_prev or dH hi and lo (64, kLdP) [n][p], C (128, kLdP)
+  // [i][n] for the dC blocks' e^l <dY, C H_prev>
+  bf16* tt = reinterpret_cast<bf16*>(smem);
+  bf16* sth = tt + 2 * kSsdTile * kLdP;
+  bf16* stl = sth + kMmaPt * kLdP;
+  bf16* cts = stl + kMmaPt * kLdP;
+  const size_t bc = blockIdx.x;
+  const int tn = gridDim.y, ntile = blockIdx.y, n0 = ntile * kMmaPt;
+  const int groups = gridDim.z / 2, grp = blockIdx.z / 2;
+  const bool db = blockIdx.z % 2 == 1;
+  const int h0 = grp * kHeadsPerGroup, h_end = min(nh, h0 + kHeadsPerGroup);
+  const int tp = cdiv(p, kMmaPt), steps = (h_end - h0) * tp;
+  const size_t row0 = bc * q, ld = static_cast<size_t>(nh) * p;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp;
+  float acc[8][4] = {};
+  if (grp == 0) {
+    // S = the groups' dCB partials summed in order, masked to j <= i, a
+    // half of the rows at a time: a group's loads all in flight before
+    // the next group's
+    const size_t qq = static_cast<size_t>(q) * q;
+#pragma unroll 1
+    for (int half = 0; half < 2; ++half) {
+      float v[kDbcSPer / 2][2] = {};
+      for (int gg = 0; gg < groups; ++gg) {
+        const float* spg = sp + (bc * groups + gg) * qq;
+#pragma unroll
+        for (int u = 0; u < kDbcSPer / 2; ++u) {
+          const int e = tid + (u + half * kDbcSPer / 2) * kDbcThreads;
+          const int i = e / (kSsdTile / 2), j = 2 * (e % (kSsdTile / 2));
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            if (i < q && j + c <= i)
+              v[u][c] += spg[static_cast<size_t>(i) * q + j + c];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kDbcSPer / 2; ++u) {
+        const int e = tid + (u + half * kDbcSPer / 2) * kDbcThreads;
+        const int i = e / (kSsdTile / 2), j = 2 * (e % (kSsdTile / 2));
+        uint32_t h, lw;
+        split_bf16(v[u][0], v[u][1], h, lw);
+        *reinterpret_cast<uint32_t*>(sh + i * kLdT + j) = h;
+        *reinterpret_cast<uint32_t*>(sl + i * kLdT + j) = lw;
+      }
+    }
+    stage<kSsdTile, kMmaPt>(ot, kLdP, (db ? cm : bm) + row0 * n + n0, n, q,
+                            n - n0, vec);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    // dC: S B on the rows i of the tile, j <= i; dB: S^T C on the rows j
+    // of the tile, i >= j
+#pragma unroll 1
+    for (int kk = db ? warp : 0; kk < (db ? kSsdTiles : warp + 1); ++kk) {
+      uint32_t ahi[4], alo[4];
+      if (db) {
+        lda_t(ahi, sh, kLdT, r0, 16 * kk);
+        lda_t(alo, sl, kLdT, r0, 16 * kk);
+      } else {
+        lda(ahi, sh, kLdT, r0, 16 * kk);
+        lda(alo, sl, kLdT, r0, 16 * kk);
+      }
+#pragma unroll
+      for (int pn = 0; pn < kMmaPt / 16; ++pn) {
+        uint32_t bf[4];
+        ldb_kn(bf, ot, kLdP, 16 * pn, 16 * kk);
+        mma_bf16(acc[2 * pn], ahi, bf[0], bf[1]);
+        mma_bf16(acc[2 * pn + 1], ahi, bf[2], bf[3]);
+        mma_bf16(acc[2 * pn], alo, bf[0], bf[1]);
+        mma_bf16(acc[2 * pn + 1], alo, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();  // the S phase's bytes are free
+  }
+  const bf16* src = db ? xb : dy;
+  const float* state = db ? gs : hs;
+  const float* scale = db ? wl : el;
+  if (!db)
+    stage<kSsdTile, kMmaPt>(cts, kLdP, cm + row0 * n + n0, n, q, n - n0,
+                            vec);
+  PlaneRegs<kMmaPt, kDbcThreads> pr;
+  // step st's dY (X) tile into buffer st % 2, and its state into pr
+  const auto prefetch = [&](int st) {
+    const int hh = h0 + st / tp, pt = (st % tp) * kMmaPt;
+    stage<kSsdTile, kMmaPt>(tt + (st % 2) * kSsdTile * kLdP, kLdP,
+                            src + row0 * ld + hh * p + pt, ld, q, p - pt,
+                            vec);
+    cp_async_commit();
+    load_plane(pr,
+               state + (bc * nh + hh) * n * p + static_cast<size_t>(n0) * p +
+                   pt,
+               p, n - n0, p - pt, p % 4 == 0);
+  };
+  prefetch(0);
+  float tmp[8][4];
+  for (int st = 0; st < steps; ++st) {
+    const int hh = h0 + st / tp, pt = (st % tp) * kMmaPt;
+    __syncthreads();  // the last step is done with the state and buffer
+    store_split(pr, sth, stl);
+    if (st + 1 < steps) {
+      prefetch(st + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this step's tiles are in
+    if (pt == 0) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tmp[nt][e] = 0.0f;
+    }
+    const bf16* tb = tt + (st % 2) * kSsdTile * kLdP;
+#pragma unroll
+    for (int kk = 0; kk < kMmaPt / 16; ++kk) {
+      uint32_t af[4];
+      lda(af, tb, kLdP, r0, 16 * kk);
+#pragma unroll
+      for (int pn = 0; pn < kMmaPt / 16; ++pn) {
+        uint32_t hi[4], lo[4];
+        ldb_nk(hi, sth, kLdP, 16 * pn, 16 * kk);
+        ldb_nk(lo, stl, kLdP, 16 * pn, 16 * kk);
+        mma_bf16(tmp[2 * pn], af, hi[0], hi[1]);
+        mma_bf16(tmp[2 * pn + 1], af, hi[2], hi[3]);
+        mma_bf16(tmp[2 * pn], af, lo[0], lo[1]);
+        mma_bf16(tmp[2 * pn + 1], af, lo[2], lo[3]);
+      }
+    }
+    if (pt + kMmaPt >= p) {
+      // the head's last P tile: its row scale, after the product
+      const size_t bch = bc * nh + hh;
+      float sc[2];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = r0 + g + 8 * hr;
+        sc[hr] = r < q ? __ldg(scale + bch * q + r) : 0.0f;
+      }
+      float iv[2] = {};
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float v = sc[e >> 1] * tmp[nt][e];
+          acc[nt][e] += v;
+          if (!db) {
+            const int r = r0 + g + 8 * (e >> 1);
+            iv[e >> 1] +=
+                to_f32(cts[r * kLdP + 8 * nt + 2 * t + (e & 1)]) * v;
+          }
+        }
+      if (!db) {
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          float v = iv[hr];
+          v += __shfl_xor_sync(kFull, v, 1);
+          v += __shfl_xor_sync(kFull, v, 2);
+          const int r = r0 + g + 8 * hr;
+          if (t == 0 && r < q) ip[(bch * tn + ntile) * q + r] = v;
+        }
+      }
+    }
+  }
+  float* out = (db ? pb : pc) + (bc * groups + grp) * q * n;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = r0 + g + 8 * hr, col = n0 + 8 * nt + 2 * t;
+      store_pair(out + static_cast<size_t>(r) * n + col, acc[nt][2 * hr],
+                 acc[nt][2 * hr + 1], r < q && col < n, col + 1 < n,
+                 n % 2 == 0);
+    }
+}
+
 // ---- the scratch and the launches --------------------------------------- //
 struct BwdScratch {
   float *l, *el, *wl, *hs, *gs, *hd, *cb, *sp, *rowg, *colg, *rp, *ip, *pc,
       *pb;
 };
 
-// f32 words of the scratch, each array from a 16-byte boundary; with
-// base, its arrays' addresses go to sc
+// f32 words of the scratch of a body, each array from a 16-byte
+// boundary; with base, its arrays' addresses go to sc.  The tensor-core
+// body sums G in one tile of Q and e^l <dY, C H_prev> over the tiles of N
+// (step 8'), not of P.
 inline long long bwd_scratch(int batch, int nc, int q, int nh, int p, int n,
-                             float* base, BwdScratch* sc) {
+                             bool mma, float* base, BwdScratch* sc) {
   const long long bc = static_cast<long long>(batch) * nc;
   const long long bch = bc * nh;
   const long long groups = cdiv(nh, kHeadsPerGroup);
-  const long long tq = cdiv(q, kTile), tp = cdiv(p, kTile);
+  const long long tq = mma ? 1 : cdiv(q, kTile), tp = cdiv(p, kTile);
+  const long long ti = mma ? cdiv(n, kTile) : tp;  // tiles of ip
   const long long slices = cdiv(n * p, kScanSlice);
   const long long states = bch * n * p;
   const long long sizes[14] = {bch * q,         bch * q,
@@ -744,7 +1769,7 @@ inline long long bwd_scratch(int batch, int nc, int q, int nh, int p, int n,
                                states,          bch * slices,
                                bc * q * q,      bc * groups * q * q,
                                bch * tq * q,    bch * tq * q,
-                               bch * tp * q,    bch * tp * q,
+                               bch * tp * q,    bch * ti * q,
                                bc * groups * q * n, bc * groups * q * n};
   float** slots[14] = {};
   if (sc) {
@@ -767,7 +1792,7 @@ int launch_ssd_bwd(const float* al, const T* xb, const T* bm, const T* cm,
                    T* dc, float* scratch, int batch, int nc, int q, int nh,
                    int p, int n, cudaStream_t st) {
   BwdScratch sc;
-  bwd_scratch(batch, nc, q, nh, p, n, scratch, &sc);
+  bwd_scratch(batch, nc, q, nh, p, n, false, scratch, &sc);
   const long long bc = static_cast<long long>(batch) * nc;
   const long long bch = bc * nh;
   const int groups = cdiv(nh, kHeadsPerGroup);
@@ -817,16 +1842,94 @@ int launch_ssd_bwd(const float* al, const T* xb, const T* bm, const T* cm,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the tensor-core body's launches (steps 1', 2', 3, 4', 5', 6', 8', 7', 9:
+// step 7' reads what step 8' adds)
+int launch_ssd_bwd_mma(const float* al, const bf16* xb, const bf16* bm,
+                       const bf16* cm, const bf16* dy, const float* dh,
+                       bf16* dx, float* da, bf16* db, bf16* dc,
+                       float* scratch, int batch, int nc, int q, int nh,
+                       int p, int n, cudaStream_t st) {
+  BwdScratch sc;
+  bwd_scratch(batch, nc, q, nh, p, n, true, scratch, &sc);
+  const long long bc = static_cast<long long>(batch) * nc;
+  const long long bch = bc * nh;
+  const int groups = cdiv(nh, kHeadsPerGroup);
+  const int tp = cdiv(p, kMmaPt), tn = cdiv(n, kMmaPt);
+  const int slices = cdiv(n * p, kScanSlice);
+  const int warp_blocks = static_cast<int>((bch + kRowWarps - 1) / kRowWarps);
+  const int vec = aligned16(xb) && aligned16(dy) && aligned16(bm) &&
+                  aligned16(cm) && p % 8 == 0 && n % 8 == 0;
+  cudaError_t err;
+  // the dynamic shared memory of the product launches
+  const auto smem = [](auto kernel, size_t bytes) {
+    return cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(bytes));
+  };
+  if ((err = smem(ssd_bwd_chunk_state_mma_kernel, kCsSmem)) != cudaSuccess ||
+      (err = smem(ssd_bwd_cb_mma_kernel, kCbSmem)) != cudaSuccess ||
+      (err = smem(ssd_bwd_dcb_mma_kernel, kDcbSmem)) != cudaSuccess ||
+      (err = smem(ssd_bwd_dx_mma_kernel, kDxSmem)) != cudaSuccess ||
+      (err = smem(ssd_bwd_dbc_mma_kernel, kDbcSmem)) != cudaSuccess)
+    return static_cast<int>(err);
+
+  ssd_bwd_decay_warp_kernel<<<warp_blocks, 32 * kRowWarps, 0, st>>>(
+      al, sc.l, sc.el, sc.wl, bch, q, nh);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const dim3 state_grid(static_cast<unsigned>(bc), groups, 2);
+  ssd_bwd_chunk_state_mma_kernel<<<state_grid, kCsThreads, kCsSmem, st>>>(
+      xb, dy, bm, cm, sc.el, sc.wl, sc.hs, sc.gs, q, nh, p, n, vec);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const dim3 scan_grid(static_cast<unsigned>(batch * nh), slices);
+  ssd_bwd_state_scan_kernel<<<scan_grid, kBwdThreads, 0, st>>>(
+      sc.hs, sc.gs, dh, sc.l, sc.hd, nc, q, nh, n * p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  ssd_bwd_cb_mma_kernel<<<static_cast<unsigned>(bc), kCbThreads, kCbSmem,
+                          st>>>(bm, cm, sc.cb, q, n, vec);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const dim3 dcb_grid(static_cast<unsigned>(bc), groups);
+  ssd_bwd_dcb_mma_kernel<<<dcb_grid, kDcbThreads, kDcbSmem, st>>>(
+      xb, dy, sc.cb, sc.l, sc.sp, sc.rowg, sc.colg, q, nh, p, vec);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const dim3 dx_grid(static_cast<unsigned>(bch), tp);
+  ssd_bwd_dx_mma_kernel<<<dx_grid, kDxThreads, kDxSmem, st>>>(
+      xb, dy, bm, sc.cb, sc.l, sc.wl, sc.gs, dx, sc.rp, q, nh, p, n, vec);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const dim3 dbc_grid(static_cast<unsigned>(bc), tn, 2 * groups);
+  ssd_bwd_dbc_mma_kernel<<<dbc_grid, kDbcThreads, kDbcSmem, st>>>(
+      xb, dy, bm, cm, sc.sp, sc.el, sc.wl, sc.hs, sc.gs, sc.pc, sc.pb, sc.ip,
+      q, nh, p, n, vec);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  ssd_bwd_dl_warp_kernel<<<warp_blocks, 32 * kRowWarps, 0, st>>>(
+      sc.rowg, sc.colg, sc.rp, sc.ip, sc.hd, sc.el, da, bch, q, nh, tp, tn,
+      slices);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const long long cells = bc * q * n;
+  const dim3 reduce_grid(
+      static_cast<unsigned>((cells + kBwdThreads - 1) / kBwdThreads), 2);
+  ssd_bwd_reduce_kernel<bf16><<<reduce_grid, kBwdThreads, 0, st>>>(
+      sc.pc, sc.pb, dc, db, cells, q, n, groups);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace repro_torch
 
-// f32 words of the scratch rt_ssd_scan_bwd takes at this shape, -1 at
-// 2^31 words or more.
+// Which body rt_ssd_scan_bwd runs for a chunk of q steps, N = n and the
+// element type dtype: 1 the tensor-core body, 0 the FMA body.
+extern "C" int rt_ssd_scan_bwd_body(int q, int n, int dtype) {
+  return repro_torch::ssd_bwd_body(q, n, dtype);
+}
+
+// f32 words of the scratch rt_ssd_scan_bwd takes at this shape and
+// element type, -1 at 2^31 words or more.
 extern "C" int rt_ssd_scan_bwd_scratch(int batch, int nc, int q, int nh,
-                                       int p, int n) {
+                                       int p, int n, int dtype) {
+  using namespace repro_torch;
   if (batch <= 0 || nc <= 0 || q <= 0 || nh <= 0 || p <= 0 || n <= 0)
     return 4;
   const long long words =
-      repro_torch::bwd_scratch(batch, nc, q, nh, p, n, nullptr, nullptr);
+      bwd_scratch(batch, nc, q, nh, p, n,
+                  ssd_bwd_body(q, n, dtype) == kBwdBodyMma, nullptr, nullptr);
   return words > 0x7fffffffLL ? -1 : static_cast<int>(words);
 }
 
@@ -854,6 +1957,12 @@ extern "C" int rt_ssd_scan_bwd(const void* xb, const void* al, const void* bm,
         static_cast<const float*>(cm), static_cast<const float*>(dy), g,
         static_cast<float*>(dx), d, static_cast<float*>(db),
         static_cast<float*>(dc), sc, batch, nc, q, nh, p, n, st);
+  if (ssd_bwd_body(q, n, dtype) == kBwdBodyMma)
+    return launch_ssd_bwd_mma(
+        a, static_cast<const bf16*>(xb), static_cast<const bf16*>(bm),
+        static_cast<const bf16*>(cm), static_cast<const bf16*>(dy), g,
+        static_cast<bf16*>(dx), d, static_cast<bf16*>(db),
+        static_cast<bf16*>(dc), sc, batch, nc, q, nh, p, n, st);
   if (dtype == kDtypeBF16)
     return launch_ssd_bwd<bf16>(
         a, static_cast<const bf16*>(xb), static_cast<const bf16*>(bm),

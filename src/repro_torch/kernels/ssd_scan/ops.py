@@ -16,9 +16,12 @@ backward does not reduce to this forward kernel (dB and dC sum over the
 heads products of dy with x, which its shared (B, S, N) Bm and Cm cannot
 express), so it recomputes the chunk states from the saved inputs and
 computes the four gradients by the formulas of
-``ssd_chunk_scan_bwd_ref``; nothing beyond the inputs is saved.  With no
-gradient wanted (serving's prefill) the launch runs bare.  On the CPU
-the plain version is ordinary differentiable torch code.
+``ssd_chunk_scan_bwd_ref``; nothing beyond the inputs is saved.  Its
+products run on the tensor cores for the shapes the forward's do (bf16,
+chunks and N of at most 128; f32 operands split into bf16 hi and lo
+parts) and on the CUDA cores otherwise (:func:`ssd_scan_bwd_body`).
+With no gradient wanted (serving's prefill) the launch runs bare.  On
+the CPU the plain version is ordinary differentiable torch code.
 
 On ``meta`` tensors the launch, and its backward, only allocate, counted
 by the dry-run as the roofline's SSD term, 2 B S (q N + H q P + 2 H N P)
@@ -36,9 +39,10 @@ from .. import common
 from .ref import chunk_len, ssd_chunk_scan_ref
 
 __all__ = ["ssd_chunk_scan", "launch_ssd_scan", "launch_ssd_scan_bwd",
-           "ssd_scan_body"]
+           "ssd_scan_body", "ssd_scan_bwd_body"]
 
-# rt_ssd_scan_body's codes (csrc/ssd_scan.cu)
+# rt_ssd_scan_body's and rt_ssd_scan_bwd_body's codes (csrc/ssd_scan.cu,
+# csrc/ssd_scan_bwd.cu)
 _BODIES = {0: "fma", 1: "mma"}
 
 
@@ -48,6 +52,14 @@ def ssd_scan_body(q: int, n: int, dtype: torch.dtype) -> str:
     most 128) or ``"fma"`` (CUDA cores).  Asks the built library, so it
     needs the CUDA toolchain."""
     return _BODIES[common.library().rt_ssd_scan_body(
+        q, n, common.DTYPE_CODE[dtype])]
+
+
+def ssd_scan_bwd_body(q: int, n: int, dtype: torch.dtype) -> str:
+    """The body the backward kernel runs for the same shape: ``"mma"``
+    or ``"fma"`` by :func:`ssd_scan_body`'s rule.  Asks the built
+    library."""
+    return _BODIES[common.library().rt_ssd_scan_bwd_body(
         q, n, common.DTYPE_CODE[dtype])]
 
 
@@ -72,7 +84,8 @@ def launch_ssd_scan_bwd(xbar, a_log, Bm, Cm, dy, dh, dx, da, dB, dC, q: int):
     b, s, h, p = xbar.shape
     n = Bm.shape[-1]
     lib = common.library()
-    words = lib.rt_ssd_scan_bwd_scratch(b, s // q, q, h, p, n)
+    words = lib.rt_ssd_scan_bwd_scratch(b, s // q, q, h, p, n,
+                                        common.DTYPE_CODE[xbar.dtype])
     if words < 0:
         raise ValueError(f"ssd_scan_bwd: {tuple(xbar.shape)} with N={n} "
                          f"needs a scratch of 2^31 words or more")
