@@ -1,0 +1,12 @@
+"""Percent of its roofline that ``fused_sweep`` reaches: the bound of the
+window's launches (``roofline/fused_sweep.py``, counted on one more
+repetition) over their kernel time in the device trace."""
+
+from causal_bench.harness.readers import roofline_share
+from causal_bench.harness.spec import load_roofline
+
+ROOFLINE = "fused_sweep"
+
+
+def read(ctx):
+    return roofline_share(ctx, ROOFLINE, load_roofline(ROOFLINE))
