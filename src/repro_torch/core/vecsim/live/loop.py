@@ -212,12 +212,15 @@ class LiveLoop:
         # recorder hooks ride admission/withdrawal (repro.obs.flight)
         self.ops = ops
         self._flight = getattr(self.obs, "flight", None)
-        self._rec = self.obs.spans
-        self._sid_tick = self._rec.name("tick")
-        self._sid = {name: self._rec.name(f"tick.{name}")
-                     for name in ("ingest", "admit", "advance")}
-        self._sid_bp = self._rec.name("backpressure")
+        self._rec = rec = self.obs.spans
+        self._sid_tick = rec.name("tick")
+        self._sid = {name: rec.name(f"tick.{name}")
+                     for name in ("ingest", "requeue", "admit", "advance",
+                                  "queue")}
+        self._sid_bp = rec.name("backpressure")
+        self._sid_finish = rec.name("loop.finish")
 
+        rec.begin(rec.name("loop.setup"))
         self.cw = LiveColumnWindow(scn, window, capacity=messages,
                                    horizon=horizon)
         if engine == "sharded":
@@ -230,6 +233,7 @@ class LiveLoop:
             self.stepper = WindowedStepper(
                 scn, window, device=device, horizon=horizon,
                 seg_len=seg_len, collect=collect, cw=self.cw, obs=self.obs)
+        rec.end()
 
         self.queue: deque = deque()      # (submit_round, origin)
         self.submit_round = np.full(messages, -1, np.int64)
@@ -345,10 +349,13 @@ class LiveLoop:
             rec.begin(self._sid["ingest"])
             self._ingest(t)
             rec.end()
+            rec.begin(self._sid["requeue"])
             self._requeue_unactivated()
+            rec.end()
             rec.begin(self._sid["admit"])
             admitted_now = self._admit(t, t_end)
             rec.end()
+            rec.counter(self._sid["queue"], len(self.queue))
             rec.begin(self._sid["advance"])
             try:
                 self.stepper.advance()
@@ -468,4 +475,8 @@ class LiveLoop:
         finally:
             if self.ops is not None:
                 self.ops.close()
-        return self._finalize(time.perf_counter() - t0)
+        wall = time.perf_counter() - t0
+        self._rec.begin(self._sid_finish)
+        report = self._finalize(wall)
+        self._rec.end()
+        return report

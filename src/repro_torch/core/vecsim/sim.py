@@ -40,13 +40,14 @@ import numpy as np
 import torch
 
 from ...backend import resolve_device
+from ...obs.spans import NULL_RECORDER
 from ..types import NetStats
 from . import kernels as kx
 from .scenario import INF, VecScenario
 
 __all__ = ["SERIES_FIELDS", "STATE_KEYS", "SlotSchedule", "full_schedule",
            "VecRunResult", "init_topo_state", "stats_from_series",
-           "state_to_device", "state_to_host", "DeviceSchedule",
+           "state_to_device", "state_to_host", "to_device", "DeviceSchedule",
            "apply_events", "pong_fire", "run_span", "execute_vec"]
 
 # Wire-size model (bytes): an AppMsg id (origin, counter), a Ping
@@ -172,19 +173,36 @@ def stats_from_series(series: np.ndarray, first_receipts: int) -> NetStats:
     )
 
 
-def state_to_device(st: Dict[str, np.ndarray],
-                    device: torch.device) -> Dict[str, torch.Tensor]:
-    return {key: torch.from_numpy(np.array(st[key])).to(device)
+def to_device(a: np.ndarray, device: torch.device,
+              rec=NULL_RECORDER) -> torch.Tensor:
+    """The host array ``a`` as a tensor on ``device``, in a ``copy.h2d``
+    span of ``rec``: on the card a copy from pageable memory, after
+    which PyTorch synchronises the stream."""
+    rec.begin(rec.name("copy.h2d"))
+    x = torch.from_numpy(a).to(device)
+    rec.end()
+    return x
+
+
+def host(x: torch.Tensor, rec=NULL_RECORDER) -> np.ndarray:
+    """A host numpy copy of ``x`` (never a view of device state), in a
+    ``copy.d2h`` span of ``rec``: from the card it waits for the
+    stream."""
+    rec.begin(rec.name("copy.d2h"))
+    out = x.to("cpu", copy=True).numpy()
+    rec.end()
+    return out
+
+
+def state_to_device(st: Dict[str, np.ndarray], device: torch.device,
+                    rec=NULL_RECORDER) -> Dict[str, torch.Tensor]:
+    return {key: to_device(np.array(st[key]), device, rec)
             for key in STATE_KEYS}
 
 
-def host(x: torch.Tensor) -> np.ndarray:
-    """A host numpy copy of ``x`` (never a view of device state)."""
-    return x.to("cpu", copy=True).numpy()
-
-
-def state_to_host(st: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    return {key: host(st[key]) for key in STATE_KEYS}
+def state_to_host(st: Dict[str, torch.Tensor],
+                  rec=NULL_RECORDER) -> Dict[str, np.ndarray]:
+    return {key: host(st[key], rec) for key in STATE_KEYS}
 
 
 # event family -> (round field, event fields in upload-row order)
@@ -202,20 +220,21 @@ class DeviceSchedule:
     one round-sorted ``(fields, events)`` int32 tensor, and
     :meth:`events` slices out one round's events by a host-side binary
     search of the sorted rounds, so selecting a round costs the device
-    nothing and the host never waits on it."""
+    nothing and the host never waits on it.  Each upload is a
+    ``copy.h2d`` span of ``rec``."""
 
-    def __init__(self, sched: SlotSchedule, device: torch.device):
-        self.is_app = torch.from_numpy(
-            np.array(sched.is_app, bool)).to(device)
+    def __init__(self, sched: SlotSchedule, device: torch.device,
+                 rec=NULL_RECORDER):
+        self.is_app = to_device(np.array(sched.is_app, bool), device, rec)
         self._fam = {}
         for fam, (round_name, names) in _FAMILIES.items():
             rounds = np.asarray(getattr(sched, round_name))
             order = np.argsort(rounds, kind="stable")
             fields = None
             if len(order):
-                fields = torch.from_numpy(np.stack(
+                fields = to_device(np.stack(
                     [np.asarray(getattr(sched, name), np.int32)[order]
-                     for name in names])).to(device)
+                     for name in names]), device, rec)
             self._fam[fam] = (rounds[order], fields)
 
     def events(self, fam: str, t: int) -> Optional[torch.Tensor]:

@@ -43,10 +43,11 @@ the JAX stepper hooks it: the latency histogram of the retiring app
 columns is folded by the ``latency_hist`` kernel straight from the live
 plane (only its 32 bucket sums reach the host), the flight recorder gets
 an ``index_select`` of only the *sampled* retiring columns, and spans
-wrap each segment's dispatch and retirement.  On the card
-``segment.dispatch`` ends when the last round is enqueued; the wait for
-the device lands in ``segment.retire``, whose first read is the
-segment's stats.
+name every phase of the set-up, each segment and the finish, down to
+each blocking copy between host and card (the tree is in
+``obs/spans.py``).  On the card ``segment.dispatch`` ends with the read
+of the segment's stats, ``segment.wait``, which waits for its rounds;
+``segment.retire`` starts after it.
 """
 
 from __future__ import annotations
@@ -64,7 +65,7 @@ from . import kernels as kx
 from .scenario import INF, VecScenario
 from .sim import (SERIES_FIELDS, DeviceSchedule, SlotSchedule, host,
                   init_topo_state, run_span, state_to_device, state_to_host,
-                  stats_from_series)
+                  stats_from_series, to_device)
 
 __all__ = ["WindowedRunResult", "WindowOverflowError", "ColumnWindow",
            "WindowedStepper", "execute_windowed"]
@@ -339,9 +340,13 @@ class WindowedStepper:
         self.device = dev = resolve_device(device)
         self.obs = obs
         self.hist = obs is not None and obs.histograms
-        self._rec = obs.spans if obs is not None else NULL_RECORDER
-        self._sid = {name: self._rec.name(f"segment.{name}")
-                     for name in ("dispatch", "retire")}
+        self._rec = rec = obs.spans if obs is not None else NULL_RECORDER
+        self._sid = {name: rec.name(name) for name in (
+            "engine.setup", "engine.finish", "segment.activate",
+            "segment.dispatch", "segment.upload", "segment.enqueue",
+            "segment.wait", "segment.snapshot", "segment.retire",
+            "retire.tables", "retire.reduce", "retire.fold",
+            "segment.activated", "segment.retired", "copy.h2d")}
         # flight recorder: host-side provenance hooks, None when off
         self._flight = getattr(obs, "flight", None)
         self.w = w = int(window)
@@ -371,7 +376,8 @@ class WindowedStepper:
             raise ValueError(f"unknown collect mode {collect!r}")
         self.collect = collect
 
-        self.st = state_to_device(init_topo_state(scn, w), dev)
+        rec.begin(self._sid["engine.setup"])
+        self.st = state_to_device(init_topo_state(scn, w), dev, rec)
         self._seg_series = torch.zeros((seg_len, len(SERIES_FIELDS)),
                                        dtype=torch.int64, device=dev)
         self.series = np.zeros((self.rounds, len(SERIES_FIELDS)), np.int64)
@@ -391,19 +397,26 @@ class WindowedStepper:
         self.app_sweeps = 0
         # the last retire_reduce columns, valid until the next span runs
         self._red: Optional[Tuple[np.ndarray, ...]] = None
+        rec.end()
 
     @property
     def done(self) -> bool:
         return self.t >= self.rounds
 
     def _run_segment(self, lo: int, hi: int) -> None:
-        scn = self.scn
-        ds = DeviceSchedule(self.cw.seg_schedule(lo, hi), self.device)
+        scn, rec, sid = self.scn, self._rec, self._sid
+        rec.begin(sid["segment.upload"])
+        ds = DeviceSchedule(self.cw.seg_schedule(lo, hi), self.device, rec)
+        rec.end()
         seg = self._seg_series[: hi - lo]
+        rec.begin(sid["segment.enqueue"])
         run_span(self.st, ds, lo, hi, seg, pc=self.pc,
                  always_gate=scn.always_gate, pong_delay=scn.pong_delay,
                  gating=self.gating)
-        self.series[lo:hi] = host(seg)
+        rec.end()
+        rec.begin(sid["segment.wait"])
+        self.series[lo:hi] = host(seg, rec)
+        rec.end()
         self._red = None
 
     def _reduce(self, gate, active, crashed):
@@ -411,14 +424,15 @@ class WindowedStepper:
         host: ``(cnt, alivedel, blocked, arrcnt, sumdel)`` as int64."""
         gated = (gate >= 0) & active & ~crashed[:, None]
         min_gate = np.where(gated, gate, INF).min(axis=1).astype(np.int32)
+        rec = self._rec
         red = kx.retire_reduce(self.st["arr"], self.st["delivered"],
                                self.st["crashed"],
-                               torch.from_numpy(min_gate).to(self.device),
+                               to_device(min_gate, self.device, rec),
                                self.rounds)
-        return tuple(host(x).astype(np.int64) for x in red)
+        return tuple(host(x, rec).astype(np.int64) for x in red)
 
     def _tables(self):
-        return tuple(host(self.st[key])
+        return tuple(host(self.st[key], self._rec)
                      for key in ("gate", "ping", "flush", "active",
                                  "crashed"))
 
@@ -429,7 +443,7 @@ class WindowedStepper:
         the telemetry, and recycle them (reset on the device)."""
         if not len(cols):
             return
-        st, cw, dev = self.st, self.cw, self.device
+        st, cw, dev, rec = self.st, self.cw, self.device, self._rec
         ids = cw.slot_msg[cols]
         app = cw.slot_app[cols]
         cnt, arrcnt, sumdel = red
@@ -443,7 +457,7 @@ class WindowedStepper:
             self.lat_sum += int((sumdel[acols] - cnt[acols] * births).sum())
             self.lat_cnt += int(cnt[acols].sum())
             self.app_sweeps += 1
-            acols_t = torch.from_numpy(acols).to(dev)
+            acols_t = to_device(acols, dev, rec)
             if self.hist:
                 # latency histogram fold, once per column at retirement,
                 # from the live plane: the base is the column's birth
@@ -451,30 +465,34 @@ class WindowedStepper:
                 lb = self.obs.latency_base
                 base = (lb[aidx] if lb is not None
                         else cw.slot_birth[acols]).astype(np.int32)
-                h = kx.latency_hist(torch.from_numpy(base).to(dev),
-                                    delivered, torch.from_numpy(acols))
-                self.obs.add_hist(host(h.sum(dim=0, dtype=torch.int64)))
+                base_t = to_device(base, dev, rec)
+                # the wrapper copies the host column list to the card
+                rec.begin(self._sid["copy.h2d"])
+                h = kx.latency_hist(base_t, delivered,
+                                    torch.from_numpy(acols))
+                rec.end()
+                self.obs.add_hist(host(h.sum(dim=0, dtype=torch.int64),
+                                       rec))
             fl = self._flight
             if fl is not None and fl.open_count:
                 # sampled provenance: the per-receiver delivery rounds of
                 # the retiring *sampled* app columns, before the reset
                 m = fl.sampled_mask(aidx)
                 if m.any():
-                    sel = torch.from_numpy(acols[m]).to(dev)
+                    sel = to_device(acols[m], dev, rec)
                     fl.on_retire(aidx[m],
-                                 host(delivered.index_select(1, sel)),
+                                 host(delivered.index_select(1, sel), rec),
                                  self.t if t_now is None else t_now,
                                  by_expiry[app][m])
             st["ever_del"] |= (delivered.index_select(1, acols_t)
                                >= 0).any(dim=1)
-            orig = torch.from_numpy(
-                cw.bc_origin[aidx].astype(np.int64)).to(dev)
-            self.bcast_done[aidx] = host(delivered[orig, acols_t] >= 0)
+            orig = to_device(cw.bc_origin[aidx].astype(np.int64), dev, rec)
+            self.bcast_done[aidx] = host(delivered[orig, acols_t] >= 0, rec)
         self.expired[ids] |= by_expiry
-        cols_t = torch.from_numpy(cols).to(dev)
+        cols_t = to_device(cols, dev, rec)
         if self.delivered_full is not None:
             self.delivered_full[:, ids] = host(
-                delivered.index_select(1, cols_t))
+                delivered.index_select(1, cols_t), rec)
         st["arr"].index_fill_(1, cols_t, int(INF))
         delivered.index_fill_(1, cols_t, -1)
         cw.slot_msg[cols] = -1
@@ -482,16 +500,20 @@ class WindowedStepper:
     def _retire(self, t_now: int) -> int:
         """Retire every column the monolithic run could no longer touch
         (plus horizon expiries); returns how many were freed."""
-        cw, w = self.cw, self.w
+        cw, w, rec, sid = self.cw, self.w, self._rec, self._sid
         slot_msg, slot_birth, slot_app = (cw.slot_msg, cw.slot_birth,
                                           cw.slot_app)
         live = slot_msg >= 0
         if not live.any():
             return 0
+        rec.begin(sid["retire.tables"])
         gate, ping, flush, active, crashed = self._tables()
+        rec.end()
         alive = ~crashed
+        rec.begin(sid["retire.reduce"])
         cnt, alivedel, blockcnt, arrcnt, sumdel = self._reduce(
             gate, active, crashed)
+        rec.end()
         self.sweeps += 1
         self._red = (cnt, arrcnt, sumdel)
         full_del = alivedel == int(alive.sum())
@@ -514,7 +536,9 @@ class WindowedStepper:
                 gate[sel], flush[sel], ping[sel] = -1, INF, -1
                 for key, val in (("gate", gate), ("flush", flush),
                                  ("ping", ping)):
+                    rec.begin(sid["copy.h2d"])
                     self.st[key].copy_(torch.from_numpy(val))
+                    rec.end()
             done |= by_exp
         fl = self._flight
         if fl is not None and fl.open_count:
@@ -525,7 +549,9 @@ class WindowedStepper:
                 if m.any():
                     fl.on_blocked(bids[m], t_now)
         cols = np.nonzero(done)[0]
+        rec.begin(sid["retire.fold"])
         self._record_and_free(cols, by_exp[cols], self._red, t_now)
+        rec.end()
         return len(cols)
 
     def advance(self) -> int:
@@ -539,25 +565,37 @@ class WindowedStepper:
         t_end = min(t + self.seg_len, self.rounds)
         if self.snapshot_round is not None and t <= self.snapshot_round:
             t_end = min(t_end, self.snapshot_round + 1)
-        b0 = self.cw.next_bc
-        t_end = self.cw.activate(t, t_end)
-        fl = self._flight
-        if fl is not None and self.cw.next_bc > b0:
-            b1 = self.cw.next_bc
-            fl.on_activate(np.arange(b0, b1), self.cw.bc_origin[b0:b1],
-                           self.cw.bc_round[b0:b1])
-        self._rec.begin(self._sid["dispatch"])
+        cw, rec, sid = self.cw, self._rec, self._sid
+        b0, a0 = cw.next_bc, cw.next_add
+        rec.begin(sid["segment.activate"])
+        try:
+            t_end = cw.activate(t, t_end)
+            fl = self._flight
+            if fl is not None and cw.next_bc > b0:
+                b1 = cw.next_bc
+                fl.on_activate(np.arange(b0, b1), cw.bc_origin[b0:b1],
+                               cw.bc_round[b0:b1])
+        finally:
+            # an overflow raise leaves the window untouched, and the
+            # live loop retries the segment
+            rec.end()
+        rec.counter(sid["segment.activated"],
+                    cw.next_bc - b0 + cw.next_add - a0)
+        rec.begin(sid["segment.dispatch"])
         self._run_segment(t, t_end)
-        self._rec.end()
+        rec.end()
         self.segments += 1
         if (self.snapshot_round is not None
                 and t_end - 1 == self.snapshot_round):
-            self.snapshot = state_to_host(self.st)
-            self.snapshot["is_app"] = self.cw.slot_app.copy()
-            self.snapshot["slot_msg"] = self.cw.slot_msg.copy()
-        self._rec.begin(self._sid["retire"])
-        self._retire(t_end)
-        self._rec.end()
+            rec.begin(sid["segment.snapshot"])
+            self.snapshot = state_to_host(self.st, rec)
+            rec.end()
+            self.snapshot["is_app"] = cw.slot_app.copy()
+            self.snapshot["slot_msg"] = cw.slot_msg.copy()
+        rec.begin(sid["segment.retire"])
+        freed = self._retire(t_end)
+        rec.counter(sid["segment.retired"], freed)
+        rec.end()
         if self.obs is not None:
             seg = self.series[t:t_end]
             self.obs.gauge("piggyback_bytes",
@@ -573,6 +611,7 @@ class WindowedStepper:
         is still live keeps its end-of-run values, exactly like the
         monolithic matrices at ``t == rounds``; its reductions are the
         last segment's, taken on these same planes."""
+        self._rec.begin(self._sid["engine.finish"])
         live_cols = np.nonzero(self.cw.slot_msg >= 0)[0]
         if len(live_cols):
             red = self._red
@@ -584,11 +623,13 @@ class WindowedStepper:
             self._record_and_free(live_cols, np.zeros(len(live_cols), bool),
                                   red)
         stats = stats_from_series(self.series, self.first_receipts)
+        state = state_to_host(self.st, self._rec)
+        self._rec.end()
         return WindowedRunResult(
             scenario=self.scn, window=self.w, device=str(self.device),
             stats=stats, series=self.series, delivered=self.delivered_full,
             deliv_count=self.deliv_count, bcast_done=self.bcast_done,
-            expired=self.expired, state=state_to_host(self.st),
+            expired=self.expired, state=state,
             snapshot=self.snapshot, peak_live=self.cw.peak_live,
             lat_sum=self.lat_sum, lat_cnt=self.lat_cnt,
             deliv_round_sum=self.deliv_round_sum, segments=self.segments,

@@ -13,8 +13,8 @@ Two write-side formats, both schema-versioned:
 * **Chrome trace-event JSON** (``write_chrome_trace``): the
   ``{"traceEvents": [...]}`` object format loadable in Perfetto /
   ``chrome://tracing``.  Spans become ``"X"`` complete events (ts/dur
-  in microseconds, rebased to the earliest event), instants ``"i"``
-  with thread scope, counters ``"C"``.
+  in microseconds, ts on the unix clock), instants ``"i"`` with thread
+  scope, counters ``"C"``.
 
 ``SINKS`` maps the ``ObsSpec.sink`` key to a writer; it is wrapped by
 the ``repro_torch.api`` registry for ``--list`` discovery.
@@ -109,8 +109,12 @@ def load_metrics_jsonl(path: str) -> dict:
 _SPAN_TRACKS = {
     "tick": (1, "serving loop"),
     "backpressure": (1, "serving loop"),
+    "loop": (1, "serving loop"),
     "segment": (2, "segment pipeline"),
+    "retire": (2, "segment pipeline"),
     "stager": (3, "schedule stager"),
+    "engine": (5, "engine set-up and finish"),
+    "copy": (6, "blocking copies"),
 }
 _DEFAULT_TRACK = (4, "engine misc")
 
@@ -124,14 +128,20 @@ def write_chrome_trace(path: str, recorder, run_args: dict | None = None,
                        extra_events: list | None = None) -> None:
     """Write the recorder's events as Perfetto-loadable Chrome trace JSON.
 
-    Spans/instants land on named thread tracks by span-name family
-    (``segment.*`` -> "segment pipeline", ``tick*`` -> "serving loop",
-    ``stager.*`` -> "schedule stager").  ``extra_events`` (already
+    ``ts`` is in microseconds on the unix clock (the recorder's
+    monotonic times plus its ``unix_offset_ns``, which the trace's
+    ``otherData`` records), the clock of ``torch.profiler``'s device
+    events, so a profiler trace of the same process lines up with it
+    gap by gap.  Spans/instants land on named thread tracks by
+    span-name family (``tick*``/``loop.*`` -> "serving loop",
+    ``segment.*``/``retire.*`` -> "segment pipeline", ``stager.*`` ->
+    "schedule stager", ``engine.*`` -> "engine set-up and finish",
+    ``copy.*`` -> "blocking copies").  ``extra_events`` (already
     trace-event dicts, e.g. provenance tracks from
     ``repro_torch.obs.flight.provenance_trace_events``) are appended verbatim.
     """
     events = recorder.events()
-    t_base = min((ev["t0_ns"] for ev in events), default=0)
+    offset = recorder.unix_offset_ns
     out = []
     if run_args:
         out.append(dict(name="process_name", ph="M", pid=pid, tid=0,
@@ -140,7 +150,7 @@ def write_chrome_trace(path: str, recorder, run_args: dict | None = None,
                         args=run_args))
     tracks: dict = {}
     for ev in events:
-        ts = (ev["t0_ns"] - t_base) / 1000.0
+        ts = (ev["t0_ns"] + offset) / 1000.0
         if ev["kind"] == "span":
             tid, label = _span_track(ev["name"])
             tracks.setdefault(tid, label)
@@ -163,7 +173,9 @@ def write_chrome_trace(path: str, recorder, run_args: dict | None = None,
     if extra_events:
         out.extend(extra_events)
     with open(path, "w") as fh:
-        json.dump(dict(traceEvents=out, displayTimeUnit="ms"), fh)
+        json.dump(dict(traceEvents=out, displayTimeUnit="ms",
+                       otherData=dict(clock="unix",
+                                      unix_offset_ns=offset)), fh)
 
 
 def write_metrics_chrome(path: str, doc: dict) -> None:

@@ -3,8 +3,45 @@
 
 ``SpanRecorder`` is the hot-path half of the telemetry subsystem: the
 live loop and the segment drivers call ``begin``/``end`` around each
-phase and ``instant``/``counter`` for point events.  Design constraints
-(DESIGN.md §2.10 "overhead policy"):
+phase and ``instant``/``counter`` for point events.  The windowed
+engine (``core/vecsim/stream.py``) and the live loop
+(``core/vecsim/live/loop.py``) record this tree; the batch path
+(``execute_windowed``) records it without the ``loop.*`` and ``tick*``
+levels::
+
+    loop.setup            LiveLoop.__init__, the window and the stepper
+      engine.setup        WindowedStepper.__init__: the state's planes
+    tick
+      tick.ingest | tick.requeue | tick.admit
+      tick.advance
+        segment.activate  ColumnWindow.activate and the flight hook
+        segment.dispatch
+          segment.upload  the segment's DeviceSchedule
+          segment.enqueue run_span: the segment's rounds, enqueued
+          segment.wait    the series read: the host waits for the rounds
+        segment.snapshot  the state read at ``snapshot_round`` (if asked)
+        segment.retire
+          retire.tables   the (N, K) tables read
+          retire.reduce   min_gate, retire_reduce, its five columns read
+          retire.fold     the retiring columns folded and reset
+    loop.finish           LiveLoop._finalize
+      engine.finish       the drain's fold and the final state read
+
+Every copy between host and card that the windowed engine makes is a
+leaf span ``copy.h2d`` or ``copy.d2h`` at its call site, inside one of
+the spans above: from pageable memory PyTorch synchronises the stream
+after the copy, so each one waits for everything enqueued before it.
+The counters ``segment.activated`` and ``segment.retired`` (columns a
+segment) and ``tick.queue`` (the queue's depth after admission) are
+ring events on the same timeline.
+
+Clock: every event is taken on ``time.monotonic_ns``, and ``events()``
+gives those times.  ``unix_offset_ns``, read once when the recorder is
+built, moves them onto the unix clock of ``time.time_ns``, which the
+device trace of ``torch.profiler`` carries; the Chrome trace writer
+(``obs/sinks.py``) applies it.
+
+Design constraints (DESIGN.md §2.10 "overhead policy"):
 
 * zero allocation on the hot path — all event storage is preallocated
   numpy arrays, names are interned once into an id table;
@@ -40,13 +77,28 @@ _KIND_COUNTER = 2
 _MAX_DEPTH = 64
 
 
+def _unix_offset_ns() -> int:
+    """``time.time_ns() - time.monotonic_ns()``, from the least delayed
+    of a few reads of the two clocks."""
+    best = None
+    for _ in range(5):
+        m0 = time.monotonic_ns()
+        w = time.time_ns()
+        m1 = time.monotonic_ns()
+        cand = (m1 - m0, w - (m0 + m1) // 2)
+        best = cand if best is None or cand < best else best
+    return best[1]
+
+
 class SpanRecorder:
-    """Fixed-capacity span/instant/counter recorder on monotonic ns."""
+    """Fixed-capacity span/instant/counter recorder on monotonic ns;
+    ``unix_offset_ns`` moves its times onto the unix clock."""
 
     enabled = True
 
     def __init__(self, capacity: int = 65536):
         self.capacity = int(capacity)
+        self.unix_offset_ns = _unix_offset_ns()
         self.kind = np.zeros(self.capacity, np.int8)
         self.name_id = np.zeros(self.capacity, np.int32)
         self.t0_ns = np.zeros(self.capacity, np.int64)

@@ -128,8 +128,12 @@ def test_live_byte_identical_to_reference(arrivals, admission):
     assert got.delivered_messages == got.admitted
     if admission == "shed":
         assert got.shed_queue + got.shed_policy > 0
-    names = [e["name"] for e in ploop.obs.spans.events()]
-    assert names == [e["name"] for e in jloop.obs.spans.events()]
+    # the port names more phases than the JAX package (obs/spans.py);
+    # the events both record come in the same order
+    want = [e["name"] for e in jloop.obs.spans.events()]
+    names = [e["name"] for e in ploop.obs.spans.events()
+             if e["name"] in set(want)]
+    assert names == want
     assert ploop.obs.spans.depth == 0
 
 

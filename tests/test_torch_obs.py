@@ -15,11 +15,18 @@ front door) on the CPU against the JAX package.
   exports are byte-identical to the JAX package's, with both samplers,
   at N in {64, 256} under churn;
 * a corrupted sampled delivery vector trips the causality auditor;
-* the Chrome trace loads back as JSON.
+* the Chrome trace loads back as JSON, with the documented span tree a
+  segment and its times on the unix clock;
+* on a batch and a live run, every span opens inside its documented
+  parent, every blocking copy inside an engine phase, none is left
+  open, and the results are byte-equal with spans on and off.
 """
 
 import dataclasses
+import functools
 import json
+import time
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -31,12 +38,14 @@ from repro.obs import hist as jhist
 from repro.obs.sinks import load_metrics_jsonl as j_load_metrics
 from repro_torch import api as tapi
 from repro_torch.core.vecsim import kernels as tkx
-from repro_torch.core.vecsim.scenario import static_scenario
-from repro_torch.core.vecsim.stream import WindowedStepper
+from repro_torch.core.vecsim.live.loop import LiveLoop
+from repro_torch.core.vecsim.scenario import churn_scenario, static_scenario
+from repro_torch.core.vecsim.stream import WindowedStepper, execute_windowed
 from repro_torch.obs import (NB, CausalityViolationError, EngineObs,
                              FlightRecorder, CausalAuditor, SpanRecorder,
                              bucket_index_torch, hist_np,
-                             load_metrics_jsonl, percentiles_from_hist)
+                             load_metrics_jsonl, percentiles_from_hist,
+                             write_chrome_trace)
 
 INT32_MAX = 2 ** 31 - 1
 
@@ -255,24 +264,178 @@ def test_hist_metrics_and_provenance_identical_to_reference(
         == _doc_without_wall(tdoc)
 
 
+_SEGMENT_SPANS = ("segment.activate", "segment.dispatch", "segment.upload",
+                  "segment.enqueue", "segment.wait", "segment.retire")
+_SWEEP_SPANS = ("retire.tables", "retire.reduce", "retire.fold")
+
+
+def _assert_unix_clock(spans, before, after):
+    """Every span's Chrome-trace interval (microseconds) lies between
+    two ``time.time_ns()`` reads taken around the run."""
+    first = min(e["ts"] for e in spans)
+    last = max(e["ts"] + e["dur"] for e in spans)
+    assert before <= first * 1000 <= last * 1000 <= after
+
+
 def test_chrome_trace_loads_back_as_json(tmp_path):
     path = tmp_path / "trace.json"
     _, tspec = _specs(n=64, seed=2, engine="windowed",
                       traffic=dict(kind="poisson", rate=2.0, messages=40),
                       window=dict(window=48, seg_len=4),
                       obs=dict(trace_out=str(path), provenance=2))
+    before = time.time_ns()
     rep = tapi.run(tspec)
+    after = time.time_ns()
     with open(path) as fh:
         doc = json.load(fh)
     events = doc["traceEvents"]
     spans = [e for e in events if e.get("ph") == "X" and e["pid"] == 1]
-    names = {e["name"] for e in spans}
-    assert names == {"segment.dispatch", "segment.retire"}
-    assert len(spans) == 2 * rep.result.segments
+    count = Counter(e["name"] for e in spans)
+    segs, sweeps = rep.result.segments, rep.result.sweeps
+    assert set(count) == {"engine.setup", "engine.finish", "copy.h2d",
+                          "copy.d2h", *_SEGMENT_SPANS, *_SWEEP_SPANS}
+    assert count["engine.setup"] == count["engine.finish"] == 1
+    assert all(count[name] == segs for name in _SEGMENT_SPANS)
+    assert all(count[name] == sweeps > 0 for name in _SWEEP_SPANS)
+    counters = Counter(e["name"] for e in events if e.get("ph") == "C")
+    assert counters == {"segment.activated": segs, "segment.retired": segs}
     assert all(e["dur"] >= 0 for e in spans)
+    assert {e["args"]["name"] for e in events if e["name"] == "thread_name"
+            and e["pid"] == 1} == {"segment pipeline", "blocking copies",
+                                   "engine set-up and finish"}
+    assert doc["otherData"]["unix_offset_ns"] == \
+        rep.obs.spans.unix_offset_ns
+    _assert_unix_clock(spans, before, after)
     prov = [e for e in events if e.get("pid") == 2 and e.get("ph") == "X"]
     assert prov and any(e["name"] == "life" for e in prov)
     assert rep.obs.spans.depth == 0
+
+
+# --------------------------------------------------------------------- #
+# The span tree of the windowed engine and the live loop
+# --------------------------------------------------------------------- #
+class _TreeRecorder(SpanRecorder):
+    """A recorder that also notes, as each span opens, the span it
+    opens inside (None at depth 0)."""
+
+    def __init__(self):
+        super().__init__(1 << 16)
+        self.edges = set()
+
+    def begin(self, name_id):
+        d = self.depth
+        parent = self._names[self._stack_name[d - 1]] if d else None
+        self.edges.add((parent, self._names[name_id]))
+        super().begin(name_id)
+
+
+def _documented_parents(kind):
+    """Span -> the spans it may open inside, as ``obs/spans.py`` draws
+    the tree: the batch path has no loop or tick levels."""
+    live = kind == "live"
+    top = "tick.advance" if live else None
+    tree = {
+        "engine.setup": {"loop.setup" if live else None},
+        "engine.finish": {"loop.finish" if live else None},
+        **{name: {top} for name in ("segment.activate", "segment.dispatch",
+                                    "segment.retire")},
+        **{name: {"segment.dispatch"} for name in (
+            "segment.upload", "segment.enqueue", "segment.wait")},
+        **{name: {"segment.retire"} for name in _SWEEP_SPANS},
+        "copy.h2d": {"engine.setup", "segment.upload", "segment.retire",
+                     "retire.reduce", "retire.fold", "engine.finish"},
+        "copy.d2h": {"segment.wait", "segment.snapshot", "retire.tables",
+                     "retire.reduce", "retire.fold", "engine.finish"},
+    }
+    if live:
+        tree.update({"loop.setup": {None}, "loop.finish": {None},
+                     "tick": {None}, "tick.ingest": {"tick"},
+                     "tick.requeue": {"tick"}, "tick.admit": {"tick"},
+                     "tick.advance": {"tick"}})
+    else:
+        tree["segment.snapshot"] = {None}
+    return tree
+
+
+def _arrays(obj):
+    """A run's outputs as plain values and arrays, for exact equality."""
+    if dataclasses.is_dataclass(obj):
+        obj = {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)
+               if f.name != "scenario"}
+    if isinstance(obj, dict):
+        return {k: _arrays(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_arrays(v) for v in obj]
+    if isinstance(obj, np.ndarray):
+        return (obj.dtype.str, obj.shape, obj.tobytes())
+    return obj
+
+
+@functools.lru_cache(maxsize=None)
+def _traced(kind, spans):
+    """A small batch run (churn with a horizon, a snapshot, provenance)
+    or live run (``admit`` admission, whose window overflows and whose
+    segments are retried), with the tree recorder or spans off; returns
+    ``(outputs, obs, time_ns before, time_ns after)``."""
+    obs = EngineObs(histograms=True)
+    if spans:
+        obs.spans = _TreeRecorder()
+    obs.flight = FlightRecorder(rate=1, seed=0, sampler="all",
+                                live=kind == "live",
+                                auditor=CausalAuditor("fail"))
+    before = time.time_ns()
+    if kind == "live":
+        loop = LiveLoop(static_scenario(3, 64, k=4, m_app=0), 12,
+                        device="cpu", collect="full", arrivals="bursty",
+                        admission="admit", rate=8.0, messages=300,
+                        queue_cap=4096, seed=11, obs=obs,
+                        arrival_params=dict(period=64, duty=0.5))
+        lr = loop.run()
+        assert lr.overflow_catches > 0
+        out = dict(report={k: v for k, v in lr.to_dict().items()
+                           if k not in ("wall_seconds", "requests_per_sec")},
+                   result=lr.result, submit=lr.submit_round,
+                   latency=lr.latency_rounds, ticks=lr.ticks)
+    else:
+        scn = churn_scenario(3, 64)
+        out = execute_windowed(scn, 40, device="cpu", horizon=30, seg_len=4,
+                               snapshot_round=5, collect="full", obs=obs)
+    after = time.time_ns()
+    hist, flight = obs.latency_hist, obs.flight.export()
+    return _arrays(dict(out=out, hist=hist, flight=flight)), obs, before, \
+        after
+
+
+@pytest.mark.parametrize("kind", ["windowed", "live"])
+def test_spans_open_inside_their_documented_parents(tmp_path, kind):
+    _, obs, before, after = _traced(kind, True)
+    rec = obs.spans
+    tree = _documented_parents(kind)
+    assert {child for _, child in rec.edges} == set(tree)
+    for parent, child in rec.edges:
+        assert parent in tree[child], (parent, child)
+    assert not any(parent is None for parent, child in rec.edges
+                   if child.startswith("copy."))
+    assert rec.depth == 0 and rec.dropped == 0
+    kinds = Counter((e["kind"], e["name"]) for e in rec.events())
+    assert kinds[("counter", "segment.activated")] == \
+        kinds[("counter", "segment.retired")] == \
+        kinds[("span", "segment.dispatch")] > 0
+    assert kinds[("counter", "tick.queue")] == kinds[("span", "tick")]
+    path = tmp_path / "trace.json"
+    write_chrome_trace(str(path), rec)
+    spans = [e for e in json.loads(path.read_text())["traceEvents"]
+             if e.get("ph") == "X"]
+    assert len(spans) == sum(n for (k, _), n in kinds.items() if k == "span")
+    _assert_unix_clock(spans, before, after)
+
+
+@pytest.mark.parametrize("kind", ["windowed", "live"])
+def test_spans_leave_results_unchanged(kind):
+    on, _, _, _ = _traced(kind, True)
+    off, obs, _, _ = _traced(kind, False)
+    assert not obs.spans.enabled
+    assert on == off
 
 
 # --------------------------------------------------------------------- #
