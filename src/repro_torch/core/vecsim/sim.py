@@ -46,8 +46,9 @@ from . import kernels as kx
 from .scenario import INF, VecScenario
 
 __all__ = ["SERIES_FIELDS", "STATE_KEYS", "SlotSchedule", "full_schedule",
-           "VecRunResult", "init_topo_state", "stats_from_series",
-           "state_to_device", "state_to_host", "to_device", "DeviceSchedule",
+           "VecRunResult", "init_topo_state", "init_device_state",
+           "stats_from_series", "state_to_device", "state_to_host",
+           "to_device", "DeviceSchedule",
            "apply_events", "pong_fire", "run_span", "execute_vec"]
 
 # Wire-size model (bytes): an AppMsg id (origin, counter), a Ping
@@ -141,7 +142,8 @@ class VecRunResult:
 
 def init_topo_state(scn: VecScenario, width: int) -> Dict[str, np.ndarray]:
     """Topology/gating state plus a ``width``-column message buffer, as
-    host arrays (:func:`state_to_device` moves them)."""
+    host arrays (:func:`state_to_device` moves them; the engines start
+    from :func:`init_device_state`)."""
     n, k = scn.n, scn.k
     return dict(
         arr=np.full((n, width), INF, np.int32),
@@ -155,6 +157,21 @@ def init_topo_state(scn: VecScenario, width: int) -> Dict[str, np.ndarray]:
         crashed=np.zeros(n, bool),
         ever_del=np.zeros(n, bool),
     )
+
+
+def init_device_state(scn: VecScenario, width: int, device: torch.device,
+                      rec=NULL_RECORDER) -> Dict[str, torch.Tensor]:
+    """The state of :func:`init_topo_state` on ``device``, without a host
+    array of plane size: the ``(N, K)`` and ``(N,)`` tables are built on
+    the host and uploaded, a ``copy.h2d`` span of ``rec`` each, and the
+    two ``(N, width)`` planes, constant at the start, are filled on
+    ``device``."""
+    tables = init_topo_state(scn, 0)
+    planes = dict(arr=_INF, delivered=-1)
+    return {key: (torch.full((scn.n, width), planes[key], dtype=torch.int32,
+                             device=device) if key in planes
+                  else to_device(tables[key], device, rec))
+            for key in STATE_KEYS}
 
 
 def stats_from_series(series: np.ndarray, first_receipts: int) -> NetStats:
@@ -380,7 +397,7 @@ def execute_vec(scn: VecScenario, device=None,
     This is the engine behind ``repro_torch.api.run``; prefer the front
     door (``run(RunSpec(...))``) in new code."""
     dev = resolve_device(device)
-    st = state_to_device(init_topo_state(scn, scn.m_total), dev)
+    st = init_device_state(scn, scn.m_total, dev)
     ds = DeviceSchedule(full_schedule(scn), dev)
     series = torch.zeros((scn.rounds, len(SERIES_FIELDS)), dtype=torch.int64,
                          device=dev)

@@ -64,7 +64,7 @@ from ..types import NetStats
 from . import kernels as kx
 from .scenario import INF, VecScenario
 from .sim import (SERIES_FIELDS, DeviceSchedule, SlotSchedule, host,
-                  init_topo_state, run_span, state_to_device, state_to_host,
+                  init_device_state, run_span, state_to_host,
                   stats_from_series, to_device)
 
 __all__ = ["WindowedRunResult", "WindowOverflowError", "ColumnWindow",
@@ -377,7 +377,7 @@ class WindowedStepper:
         self.collect = collect
 
         rec.begin(self._sid["engine.setup"])
-        self.st = state_to_device(init_topo_state(scn, w), dev, rec)
+        self.st = init_device_state(scn, w, dev, rec)
         self._seg_series = torch.zeros((seg_len, len(SERIES_FIELDS)),
                                        dtype=torch.int64, device=dev)
         self.series = np.zeros((self.rounds, len(SERIES_FIELDS)), np.int64)

@@ -10,7 +10,8 @@ engine (``core/vecsim/stream.py``) and the live loop
 levels::
 
     loop.setup            LiveLoop.__init__, the window and the stepper
-      engine.setup        WindowedStepper.__init__: the state's planes
+      engine.setup        WindowedStepper.__init__: the tables' uploads,
+                          the planes filled on the card
     tick
       tick.ingest | tick.requeue | tick.admit
       tick.advance

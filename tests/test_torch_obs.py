@@ -430,6 +430,50 @@ def test_spans_open_inside_their_documented_parents(tmp_path, kind):
     _assert_unix_clock(spans, before, after)
 
 
+class _SetupUploads(SpanRecorder):
+    """A recorder that also counts the ``copy.h2d`` spans opened
+    directly inside ``engine.setup``."""
+
+    def __init__(self):
+        super().__init__(1 << 16)
+        self.setup_h2d = 0
+
+    def inside(self, label):
+        d = self.depth
+        return bool(d) and self._names[self._stack_name[d - 1]] == label
+
+    def begin(self, name_id):
+        if (self._names[name_id] == "copy.h2d"
+                and self.inside("engine.setup")):
+            self.setup_h2d += 1
+        super().begin(name_id)
+
+
+def test_engine_setup_uploads_the_tables_and_no_plane(monkeypatch):
+    """The windowed engine's set-up uploads each (N, K) and (N,) table
+    once and no (N, W) plane: the planes are filled on the device."""
+    from repro_torch.core.vecsim import sim
+    uploads = []
+    real = sim.to_device
+
+    def to_device(a, device, rec=sim.NULL_RECORDER):
+        if rec.depth and rec.inside("engine.setup"):
+            uploads.append(a.shape)
+        return real(a, device, rec)
+
+    monkeypatch.setattr(sim, "to_device", to_device)
+    obs = EngineObs()
+    obs.spans = _SetupUploads()
+    scn = churn_scenario(3, 64)
+    w = 40
+    assert scn.k != w
+    out = execute_windowed(scn, w, device="cpu", seg_len=4, collect="full",
+                           obs=obs)
+    assert out.delivered_frac() == 1.0
+    assert obs.spans.setup_h2d == len(uploads) == 8
+    assert sorted(uploads) == sorted([(scn.n,)] * 2 + [(scn.n, scn.k)] * 6)
+
+
 @pytest.mark.parametrize("kind", ["windowed", "live"])
 def test_spans_leave_results_unchanged(kind):
     on, _, _, _ = _traced(kind, True)

@@ -3,19 +3,24 @@
 JAX package's numpy windowed engine: delivered matrix, series, stats,
 per-message aggregates, peak, latency sums and final state on every
 builder; aggregate collection, horizon expiry, seg_len invariance and
-overflow-round parity; and one windowed result against the exact event
-engine through the reference's cross-validation."""
+overflow-round parity; one windowed result against the exact event
+engine through the reference's cross-validation; and the engines'
+initial state, its planes filled on the device, against the uploaded
+host state."""
 
 import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core.vecsim import WindowOverflowError as RefOverflow
 from repro.core.vecsim.crossval import cross_validate
 from repro.core.vecsim.stream import execute_windowed as ref_windowed
 from repro_torch.core.vecsim import (WindowedStepper, WindowOverflowError,
                                      execute_windowed, scenario_from_arrays)
+from repro_torch.core.vecsim.sim import (STATE_KEYS, init_device_state,
+                                         init_topo_state, state_to_device)
 from vecsim_cases import BUILDERS
 
 
@@ -145,3 +150,24 @@ def test_windowed_result_cross_validates_against_exact_engine():
     assert out["vec"] is got
     assert out["vec_multiset"] == out["exact_multiset"]
     assert out["vec_report"].ok and out["exact_report"].ok
+
+
+@pytest.mark.parametrize("builder", sorted(BUILDERS))
+@pytest.mark.parametrize("width", ["window", "m_total"])
+def test_device_state_equals_uploaded_host_state(builder, width):
+    """The engines' initial state, its planes filled on the device, is
+    the uploaded host state key for key, at a windowed engine's width
+    and at the monolithic engine's ``M_total``."""
+    scn = port_scenario(BUILDERS[builder](5, 64))
+    w = max(4, scn.m_total // 2) if width == "window" else scn.m_total
+    dev = torch.device("cpu")
+    got = init_device_state(scn, w, dev)
+    want = state_to_device(init_topo_state(scn, w), dev)
+    assert tuple(got) == tuple(want) == STATE_KEYS
+    for key in STATE_KEYS:
+        a, b = got[key], want[key]
+        assert (a.dtype, a.shape, a.device) == \
+            (b.dtype, b.shape, b.device), key
+        assert a.is_contiguous() and b.is_contiguous(), key
+        assert torch.equal(a, b), key
+    assert got["arr"].shape == (scn.n, w)
