@@ -1,0 +1,13 @@
+"""Percent of its roofline that ``frontier_sweep`` reaches in the gated
+rounds of a churn cell: the bound of the window's launches
+(``roofline/frontier_sweep.py``, counted on one more repetition) over their
+kernel time in the device trace."""
+
+from causal_bench.harness.readers import roofline_share
+from causal_bench.harness.spec import load_roofline
+
+ROOFLINE = "frontier_sweep"
+
+
+def read(ctx):
+    return roofline_share(ctx, ROOFLINE, load_roofline(ROOFLINE))

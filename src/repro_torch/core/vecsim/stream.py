@@ -345,8 +345,9 @@ class WindowedStepper:
             "engine.setup", "engine.finish", "segment.activate",
             "segment.dispatch", "segment.upload", "segment.enqueue",
             "segment.wait", "segment.snapshot", "segment.retire",
-            "retire.tables", "retire.reduce", "retire.fold",
-            "segment.activated", "segment.retired", "copy.h2d")}
+            "retire.tables", "retire.reduce", "retire.gates", "retire.fold",
+            "segment.activated", "segment.retired", "segment.blocked",
+            "copy.h2d")}
         # flight recorder: host-side provenance hooks, None when off
         self._flight = getattr(obs, "flight", None)
         self.w = w = int(window)
@@ -497,15 +498,16 @@ class WindowedStepper:
         delivered.index_fill_(1, cols_t, -1)
         cw.slot_msg[cols] = -1
 
-    def _retire(self, t_now: int) -> int:
+    def _retire(self, t_now: int) -> Tuple[int, int]:
         """Retire every column the monolithic run could no longer touch
-        (plus horizon expiries); returns how many were freed."""
+        (plus horizon expiries); returns how many were freed and, when
+        tracing, the live app columns that only a pending gate keeps."""
         cw, w, rec, sid = self.cw, self.w, self._rec, self._sid
         slot_msg, slot_birth, slot_app = (cw.slot_msg, cw.slot_birth,
                                           cw.slot_app)
         live = slot_msg >= 0
         if not live.any():
-            return 0
+            return 0, 0
         rec.begin(sid["retire.tables"])
         gate, ping, flush, active, crashed = self._tables()
         rec.end()
@@ -517,6 +519,7 @@ class WindowedStepper:
         self.sweeps += 1
         self._red = (cnt, arrcnt, sumdel)
         full_del = alivedel == int(alive.sum())
+        rec.begin(sid["retire.gates"])
         blocked = (blockcnt > 0) & slot_app
         ref = np.zeros(w, bool)
         ref[ping[(ping >= 0) & ~crashed[:, None]]] = True
@@ -540,6 +543,9 @@ class WindowedStepper:
                     self.st[key].copy_(torch.from_numpy(val))
                     rec.end()
             done |= by_exp
+        held = (int((live & full_del & blocked & ~done).sum())
+                if rec.enabled else 0)
+        rec.end()
         fl = self._flight
         if fl is not None and fl.open_count:
             blk = np.nonzero(live & blocked & ~done)[0]
@@ -552,7 +558,7 @@ class WindowedStepper:
         rec.begin(sid["retire.fold"])
         self._record_and_free(cols, by_exp[cols], self._red, t_now)
         rec.end()
-        return len(cols)
+        return len(cols), held
 
     def advance(self) -> int:
         """Run one segment (activate -> span -> retire); returns the new
@@ -593,8 +599,9 @@ class WindowedStepper:
             self.snapshot["is_app"] = cw.slot_app.copy()
             self.snapshot["slot_msg"] = cw.slot_msg.copy()
         rec.begin(sid["segment.retire"])
-        freed = self._retire(t_end)
+        freed, held = self._retire(t_end)
         rec.counter(sid["segment.retired"], freed)
+        rec.counter(sid["segment.blocked"], held)
         rec.end()
         if self.obs is not None:
             seg = self.series[t:t_end]

@@ -24,6 +24,8 @@ levels::
         segment.retire
           retire.tables   the (N, K) tables read
           retire.reduce   min_gate, retire_reduce, its five columns read
+          retire.gates    the ping-reference and blocked masks, and
+                          with a horizon the hung gates cleared
           retire.fold     the retiring columns folded and reset
     loop.finish           LiveLoop._finalize
       engine.finish       the drain's fold and the final state read
@@ -33,8 +35,10 @@ leaf span ``copy.h2d`` or ``copy.d2h`` at its call site, inside one of
 the spans above: from pageable memory PyTorch synchronises the stream
 after the copy, so each one waits for everything enqueued before it.
 The counters ``segment.activated`` and ``segment.retired`` (columns a
-segment) and ``tick.queue`` (the queue's depth after admission) are
-ring events on the same timeline.
+segment), ``segment.blocked`` (live app columns delivered everywhere
+that only a pending gate keeps, counted only when tracing) and
+``tick.queue`` (the queue's depth after admission) are ring events on
+the same timeline.
 
 Clock: every event is taken on ``time.monotonic_ns``, and ``events()``
 gives those times.  ``unix_offset_ns``, read once when the recorder is

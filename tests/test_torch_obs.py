@@ -266,7 +266,8 @@ def test_hist_metrics_and_provenance_identical_to_reference(
 
 _SEGMENT_SPANS = ("segment.activate", "segment.dispatch", "segment.upload",
                   "segment.enqueue", "segment.wait", "segment.retire")
-_SWEEP_SPANS = ("retire.tables", "retire.reduce", "retire.fold")
+_SWEEP_SPANS = ("retire.tables", "retire.reduce", "retire.gates",
+                "retire.fold")
 
 
 def _assert_unix_clock(spans, before, after):
@@ -298,7 +299,8 @@ def test_chrome_trace_loads_back_as_json(tmp_path):
     assert all(count[name] == segs for name in _SEGMENT_SPANS)
     assert all(count[name] == sweeps > 0 for name in _SWEEP_SPANS)
     counters = Counter(e["name"] for e in events if e.get("ph") == "C")
-    assert counters == {"segment.activated": segs, "segment.retired": segs}
+    assert counters == {name: segs for name in (
+        "segment.activated", "segment.retired", "segment.blocked")}
     assert all(e["dur"] >= 0 for e in spans)
     assert {e["args"]["name"] for e in events if e["name"] == "thread_name"
             and e["pid"] == 1} == {"segment pipeline", "blocking copies",
@@ -343,7 +345,8 @@ def _documented_parents(kind):
             "segment.upload", "segment.enqueue", "segment.wait")},
         **{name: {"segment.retire"} for name in _SWEEP_SPANS},
         "copy.h2d": {"engine.setup", "segment.upload", "segment.retire",
-                     "retire.reduce", "retire.fold", "engine.finish"},
+                     "retire.reduce", "retire.gates", "retire.fold",
+                     "engine.finish"},
         "copy.d2h": {"segment.wait", "segment.snapshot", "retire.tables",
                      "retire.reduce", "retire.fold", "engine.finish"},
     }
@@ -546,7 +549,11 @@ def test_span_recorder_matches_reference_surface():
     assert recs[0].depth == 0
 
 
-def test_obs_and_live_spec_defaults_track_the_reference():
+def test_obs_and_live_spec_defaults_track_the_reference(monkeypatch):
+    # the benchmark's live driver registers its submission trace in the
+    # process's arrivals table; compare the table as the port builds it
+    from repro_torch.core.vecsim.live import arrivals
+    monkeypatch.delitem(arrivals._ARRIVALS, "cbench.trace", raising=False)
     assert dataclasses.asdict(tapi.ObsSpec()) == \
         dataclasses.asdict(japi.ObsSpec())
     assert dataclasses.asdict(tapi.LiveSpec()) == \
