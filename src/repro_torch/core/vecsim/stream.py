@@ -36,7 +36,9 @@ the host reads the segment's stats rows, the ``(N, K)`` gate tables, and
 the five ``(W,)`` column reductions of the ``retire_reduce`` kernel;
 retiring columns are recorded from those reductions and reset on the
 device, and only with ``collect="full"`` is their ``delivered`` slice
-copied to the host.
+copied to the host.  At the finish, once the drain has reset every
+column, the planes are checked on the device to hold only their reset
+values and reach the host as read-only constants, never copied.
 
 Telemetry (``repro_torch.obs``, threaded in as ``obs=``) hooks in where
 the JAX stepper hooks it: the latency histogram of the retiring app
@@ -63,8 +65,8 @@ from ...obs.spans import NULL_RECORDER
 from ..types import NetStats
 from . import kernels as kx
 from .scenario import INF, VecScenario
-from .sim import (SERIES_FIELDS, DeviceSchedule, SlotSchedule, host,
-                  init_device_state, run_span, state_to_host,
+from .sim import (SERIES_FIELDS, STATE_KEYS, DeviceSchedule, SlotSchedule,
+                  host, init_device_state, run_span, state_to_host,
                   stats_from_series, to_device)
 
 __all__ = ["WindowedRunResult", "WindowOverflowError", "ColumnWindow",
@@ -106,7 +108,9 @@ class WindowedRunResult:
     deliv_count: np.ndarray         # (M_total,) deliveries per message
     bcast_done: np.ndarray          # (m_app,) broadcast actually happened
     expired: np.ndarray             # (M_total,) retired by horizon expiry
-    state: Dict[str, np.ndarray]    # final topology state + live buffer
+    # final topology state; after a finish its (N, W) planes "arr" and
+    # "delivered" are read-only constants (INF, -1): the drain resets them
+    state: Dict[str, np.ndarray]
     snapshot: Optional[Dict[str, np.ndarray]]
     peak_live: int                  # max live columns ever resident
     lat_sum: int                    # sum of (deliver - broadcast) rounds
@@ -613,12 +617,40 @@ class WindowedStepper:
         self.t = t_end
         return t_end
 
+    def _drained_planes(self) -> Dict[str, np.ndarray]:
+        """The two ``(N, W)`` planes after the drain, as read-only host
+        constants of the planes' shape: one ``aminmax`` a plane on the
+        device and one read of the four values check that every cell
+        holds its reset value.  Raises ``RuntimeError`` naming the
+        plane if one does not, since a column was then retired without
+        its reset."""
+        st = self.st
+        bounds = host(torch.stack([*torch.aminmax(st["arr"]),
+                                   *torch.aminmax(st["delivered"])]),
+                      self._rec)
+        planes = {}
+        for i, (key, val) in enumerate((("arr", INF), ("delivered", -1))):
+            lo, hi = (int(x) for x in bounds[2 * i: 2 * i + 2])
+            if lo != val or hi != val:
+                raise RuntimeError(
+                    f"the drained {key!r} plane holds values in "
+                    f"[{lo}, {hi}], not only its reset value {int(val)}: "
+                    f"a column was retired without its reset")
+            planes[key] = np.broadcast_to(np.int32(val),
+                                          tuple(st[key].shape))
+        return planes
+
     def finish(self) -> WindowedRunResult:
-        """Drain still-live columns and build the run result.  Whatever
-        is still live keeps its end-of-run values, exactly like the
-        monolithic matrices at ``t == rounds``; its reductions are the
-        last segment's, taken on these same planes."""
-        self._rec.begin(self._sid["engine.finish"])
+        """Drain still-live columns and build the run result.  The
+        drain folds each still-live column from the last segment's
+        reductions, taken on these same planes, and resets it like any
+        retired column.  Every column of the window is then at its
+        reset value (never used, retired and reset, or drained and
+        reset), so the two ``(N, W)`` planes are checked on the device
+        and not copied (:meth:`_drained_planes`); the eight ``(N, K)``
+        and ``(N,)`` tables are read back."""
+        rec = self._rec
+        rec.begin(self._sid["engine.finish"])
         live_cols = np.nonzero(self.cw.slot_msg >= 0)[0]
         if len(live_cols):
             red = self._red
@@ -630,8 +662,10 @@ class WindowedStepper:
             self._record_and_free(live_cols, np.zeros(len(live_cols), bool),
                                   red)
         stats = stats_from_series(self.series, self.first_receipts)
-        state = state_to_host(self.st, self._rec)
-        self._rec.end()
+        planes = self._drained_planes()
+        state = {key: planes[key] if key in planes
+                 else host(self.st[key], rec) for key in STATE_KEYS}
+        rec.end()
         return WindowedRunResult(
             scenario=self.scn, window=self.w, device=str(self.device),
             stats=stats, series=self.series, delivered=self.delivered_full,

@@ -28,7 +28,8 @@ levels::
                           with a horizon the hung gates cleared
           retire.fold     the retiring columns folded and reset
     loop.finish           LiveLoop._finalize
-      engine.finish       the drain's fold and the final state read
+      engine.finish       the drain's fold, the drained planes' check on
+                          the card and the (N, K) / (N,) tables' read
 
 Every copy between host and card that the windowed engine makes is a
 leaf span ``copy.h2d`` or ``copy.d2h`` at its call site, inside one of

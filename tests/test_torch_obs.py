@@ -19,7 +19,10 @@ front door) on the CPU against the JAX package.
   segment and its times on the unix clock;
 * on a batch and a live run, every span opens inside its documented
   parent, every blocking copy inside an engine phase, none is left
-  open, and the results are byte-equal with spans on and off.
+  open, and the results are byte-equal with spans on and off;
+* the windowed engine's set-up uploads no (N, W) plane, and its finish
+  reads none back: its ``copy.d2h`` spans are the eight tables, the
+  planes' check and the drain's own reads.
 """
 
 import dataclasses
@@ -433,22 +436,21 @@ def test_spans_open_inside_their_documented_parents(tmp_path, kind):
     _assert_unix_clock(spans, before, after)
 
 
-class _SetupUploads(SpanRecorder):
-    """A recorder that also counts the ``copy.h2d`` spans opened
-    directly inside ``engine.setup``."""
+class _LeafCount(SpanRecorder):
+    """A recorder that also counts the ``leaf`` spans opened directly
+    inside a ``parent`` span."""
 
-    def __init__(self):
+    def __init__(self, leaf, parent):
         super().__init__(1 << 16)
-        self.setup_h2d = 0
+        self.leaf, self.parent, self.count = leaf, parent, 0
 
     def inside(self, label):
         d = self.depth
         return bool(d) and self._names[self._stack_name[d - 1]] == label
 
     def begin(self, name_id):
-        if (self._names[name_id] == "copy.h2d"
-                and self.inside("engine.setup")):
-            self.setup_h2d += 1
+        if self._names[name_id] == self.leaf and self.inside(self.parent):
+            self.count += 1
         super().begin(name_id)
 
 
@@ -466,15 +468,59 @@ def test_engine_setup_uploads_the_tables_and_no_plane(monkeypatch):
 
     monkeypatch.setattr(sim, "to_device", to_device)
     obs = EngineObs()
-    obs.spans = _SetupUploads()
+    obs.spans = _LeafCount("copy.h2d", "engine.setup")
     scn = churn_scenario(3, 64)
     w = 40
     assert scn.k != w
     out = execute_windowed(scn, w, device="cpu", seg_len=4, collect="full",
                            obs=obs)
     assert out.delivered_frac() == 1.0
-    assert obs.spans.setup_h2d == len(uploads) == 8
+    assert obs.spans.count == len(uploads) == 8
     assert sorted(uploads) == sorted([(scn.n,)] * 2 + [(scn.n, scn.k)] * 6)
+
+
+@pytest.mark.parametrize("drain", [False, True])
+def test_engine_finish_reads_the_tables_and_no_plane(monkeypatch, drain):
+    """The windowed engine's finish copies each (N, K) and (N,) table
+    once, the planes' four-value check and the drain's own reads (the
+    retiring columns' histogram and broadcast flags), and no (N, W)
+    plane: the drained planes stay on the device."""
+    from repro_torch.core.vecsim import stream
+    reads = []
+    real = stream.host
+
+    def host(x, rec=stream.NULL_RECORDER):
+        if rec.depth and rec.inside("engine.finish"):
+            reads.append(tuple(x.shape))
+        return real(x, rec)
+
+    monkeypatch.setattr(stream, "host", host)
+    from repro_torch.core.vecsim.scenario import sustained_scenario
+    scn = sustained_scenario(4, 48, k=4, rate=2.0, messages=60,
+                             max_delay=2)
+    if drain:
+        # cut the run two rounds after its last broadcast, so columns
+        # are still live at the finish
+        scn = dataclasses.replace(
+            scn, rounds=int(scn.bcast_round.max()) + 2).validate()
+    obs = EngineObs(histograms=True)
+    obs.spans = _LeafCount("copy.d2h", "engine.finish")
+    w = 64
+    stp = WindowedStepper(scn, w, device="cpu", seg_len=4,
+                          collect="aggregate", obs=obs)
+    while not stp.done:
+        stp.advance()
+    live = stp.cw.slot_msg >= 0
+    n_app = int((live & stp.cw.slot_app).sum())
+    assert bool(n_app) == drain
+    out = stp.finish()
+    drained = [(NB,), (n_app,)] if drain else []
+    want = [(scn.n, scn.k)] * 6 + [(scn.n,)] * 2 + [(4,)] + drained
+    assert sorted(reads) == sorted(want)
+    assert obs.spans.count == len(want)
+    assert (scn.n, w) not in reads
+    assert out.state["arr"].shape == out.state["delivered"].shape == \
+        (scn.n, w)
 
 
 @pytest.mark.parametrize("kind", ["windowed", "live"])

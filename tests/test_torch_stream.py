@@ -4,9 +4,10 @@ JAX package's numpy windowed engine: delivered matrix, series, stats,
 per-message aggregates, peak, latency sums and final state on every
 builder; aggregate collection, horizon expiry, seg_len invariance and
 overflow-round parity; one windowed result against the exact event
-engine through the reference's cross-validation; and the engines'
-initial state, its planes filled on the device, against the uploaded
-host state."""
+engine through the reference's cross-validation; the engines' initial
+state, its planes filled on the device, against the uploaded host
+state; and the finish's two (N, W) planes, read-only constants of the
+window's shape, checked on the device (a plane left unreset raises)."""
 
 import dataclasses
 
@@ -16,9 +17,12 @@ import torch
 
 from repro.core.vecsim import WindowOverflowError as RefOverflow
 from repro.core.vecsim.crossval import cross_validate
+from repro.core.vecsim.scenario import static_scenario as j_static
 from repro.core.vecsim.stream import execute_windowed as ref_windowed
 from repro_torch.core.vecsim import (WindowedStepper, WindowOverflowError,
                                      execute_windowed, scenario_from_arrays)
+from repro_torch.core.vecsim.live import LiveLoop
+from repro_torch.core.vecsim.scenario import INF
 from repro_torch.core.vecsim.sim import (STATE_KEYS, init_device_state,
                                          init_topo_state, state_to_device)
 from vecsim_cases import BUILDERS
@@ -171,3 +175,56 @@ def test_device_state_equals_uploaded_host_state(builder, width):
         assert a.is_contiguous() and b.is_contiguous(), key
         assert torch.equal(a, b), key
     assert got["arr"].shape == (scn.n, w)
+
+
+def _assert_constant_planes(state, n, w):
+    """The finished state's two planes: int32 (n, w), read-only, at
+    their reset values."""
+    for key, val in (("arr", INF), ("delivered", -1)):
+        plane = state[key]
+        assert (plane.shape, plane.dtype) == ((n, w), np.int32), key
+        assert not plane.flags.writeable, key
+        assert (plane == val).all(), key
+
+
+@pytest.mark.parametrize("builder", sorted(BUILDERS))
+@pytest.mark.parametrize("horizon", [None, 3])
+@pytest.mark.parametrize("seg_len", [1, 32])
+def test_finished_planes_are_read_only_constants(builder, horizon, seg_len):
+    """After the drain every column is at its reset value, so the
+    finish hands the host constant read-only planes of the window's
+    shape, equal to the JAX package's read planes."""
+    ref_scn = BUILDERS[builder](7, 64)
+    w = max(4, ref_scn.m_total)
+    got, want = _both(ref_scn, w, horizon=horizon, seg_len=seg_len,
+                      collect="full")
+    assert got is not None
+    _assert_constant_planes(got.state, ref_scn.n, w)
+    _assert_windowed(got, want)
+
+
+@pytest.mark.parametrize("key,value", [("arr", 5), ("delivered", 3)])
+def test_finish_raises_on_a_plane_left_unreset(key, value):
+    """A cell of a free column that a retirement failed to reset makes
+    the finish raise, naming the plane, instead of hiding it."""
+    scn = port_scenario(BUILDERS["churn"](3, 64))
+    stepper = WindowedStepper(scn, scn.m_total + 8, device="cpu", seg_len=8)
+    while not stepper.done:
+        stepper.advance()
+    free = np.nonzero(stepper.cw.slot_msg < 0)[0]
+    stepper.st[key][scn.n // 2, int(free[-1])] = value
+    with pytest.raises(RuntimeError, match=f"drained '{key}' plane"):
+        stepper.finish()
+
+
+def test_live_session_result_carries_constant_planes():
+    """The live loop's finish gives the same constant planes, at the
+    live window's width."""
+    w = 12
+    base = port_scenario(j_static(5, 64, k=4, m_app=0))
+    rep = LiveLoop(base, w, device="cpu", collect="aggregate",
+                   arrivals="bursty", admission="defer", rate=6.0,
+                   messages=120, seed=4,
+                   arrival_params=dict(period=32, duty=0.5)).run()
+    assert rep.result.deliv_count[: rep.scenario.m_app].all()
+    _assert_constant_planes(rep.result.state, base.n, w)
