@@ -422,7 +422,7 @@ class LiveLoop:
             res.delivered = res.delivered[:, sel]
         res.series = res.series[: adm.rounds]
         res.stats = stats_from_series(res.series,
-                                      self.stepper.first_receipts)
+                                      self.stepper.retirer.first_receipts)
 
         submit = self.submit_round[:m_bc]
         cnt = res.deliv_count[:m_bc]

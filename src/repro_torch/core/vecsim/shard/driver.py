@@ -3,11 +3,10 @@
 The twin of ``stream.execute_windowed`` with the process axis split over
 ``torch.distributed`` ranks (the JAX package's ``shard/driver.py`` over
 a device mesh): the same :class:`~repro_torch.core.vecsim.stream.ColumnWindow`
-activates messages into live columns and the same retirement *rules*
-recycle them, but each rank keeps only its row block of the planes on
-its device for the whole run.  Retirement is decided from per-column
-aggregates summed over the ranks, and column recycling is a device-side
-update; the host never holds an ``(N, W)`` plane unless the run collects
+activates messages into live columns and the same retirement
+(``retire.py``, with this engine's rank group) recycles them, but each
+rank keeps only its row block of the planes on its device for the whole
+run.  The host never holds an ``(N, W)`` plane unless the run collects
 the full delivered matrix (``collect="full"``, on rank 0).
 
 All host bookkeeping — the window, the retirement decisions, the series
@@ -45,14 +44,14 @@ import torch
 from ....backend import resolve_device
 from ....obs.spans import NULL_RECORDER
 from ..scenario import INF, VecScenario
-from ..sim import (SERIES_FIELDS, STATE_KEYS, host, init_topo_state,
-                   stats_from_series)
+from ..retire import Retirer, resolve_collect
+from ..sim import (_FAMILIES as _SIM_FAMILIES, SERIES_FIELDS, STATE_KEYS,
+                   host, init_topo_state, stats_from_series)
 from ..stream import ColumnWindow, WindowedRunResult
 from .mesh import (ShardGroup, inverse_tables, pad_rows, resolve_world,
                    topology_digest)
-from .spanner import (INT16_LIMIT, column_partials, fast_positions,
-                      fast_span, generic_span, latency_hist_sum,
-                      resolve_scan, retire_apply)
+from .spanner import (INT16_LIMIT, fast_positions, fast_span, generic_span,
+                      resolve_scan)
 
 __all__ = ["ShardedRunResult", "ShardedStepper", "execute_sharded"]
 
@@ -107,15 +106,11 @@ def _put(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.clone()
 
 
-# event family -> (round field, (device field, is a process row) ...)
-_FAMILIES = {
-    "bc": ("bc_round", (("bc_origin", True), ("bc_slot", False))),
-    "add": ("add_round", (("add_p", True), ("add_k", False),
-                          ("add_q", False), ("add_delay", False),
-                          ("add_slot", False))),
-    "rm": ("rm_round", (("rm_p", True), ("rm_k", False))),
-    "cr": ("cr_round", (("cr_pid", True),)),
-}
+# event family -> (round field, (device field, is a process row) ...):
+# sim's families, with the fields that are process rows flagged
+_ROWS = frozenset(("bc_origin", "add_p", "rm_p", "cr_pid"))
+_FAMILIES = {fam: (rnd, tuple((name, name in _ROWS) for name in flds))
+             for fam, (rnd, flds) in _SIM_FAMILIES.items()}
 _FIELDS = frozenset(name for _, flds in _FAMILIES.values()
                     for name, _ in flds)
 # fields whose content depends on column assignment (``activate``)
@@ -295,14 +290,7 @@ class ShardedStepper:
 
         self.cw = cw = cw if cw is not None else ColumnWindow(
             scn, w, horizon=horizon)
-        self.m_app = cw.m_app_cap
-        self.m_total = m_total = self.m_app + scn.n_adds
-        if collect == "auto":
-            collect = ("full" if n * max(m_total, 1) <= (1 << 26)
-                       else "aggregate")
-        if collect not in ("full", "aggregate"):
-            raise ValueError(f"unknown collect mode {collect!r}")
-        self.collect = collect
+        self.collect = resolve_collect(collect, n, cw.m_app_cap + scn.n_adds)
 
         st0 = _padded_state(scn, n_pad)
         rows = slice(group.off, group.off + n_loc)
@@ -323,33 +311,24 @@ class ShardedStepper:
         self.series = np.zeros((rounds, len(SERIES_FIELDS)), np.int64)
         self._seg_series = torch.zeros((seg_len, len(SERIES_FIELDS)),
                                        dtype=torch.int64, device=dev)
-        self.delivered_full = (np.full((n, m_total), -1, np.int32)
-                               if collect == "full" and rank == 0 else None)
-        self.deliv_count = np.zeros(m_total, np.int64)
-        self.deliv_round_sum = np.zeros(m_total, np.int64)
-        self.bcast_done = np.zeros(self.m_app, bool)
-        self.expired = np.zeros(m_total, bool)
-        self.first_receipts = 0
-        self.lat_sum = 0
-        self.lat_cnt = 0
         self.snapshot: Optional[Dict[str, np.ndarray]] = None
         self.seg_profile: Optional[List[dict]] = [] if profile else None
         self._clock = time.perf_counter
         self.t = 0
-        self.segments = self.sweeps = self.app_sweeps = 0
+        self.segments = 0
         self.fast_segments = self.generic_segments = 0
 
-        # telemetry: the segment bodies are telemetry-free; the latency
-        # histogram is one latency_hist launch a retirement sweep over
-        # the retiring app columns only
+        # telemetry: the segment bodies are telemetry-free; the
+        # retirement folds the latency histogram and the flight
+        # recorder's rows, gathered on every rank (its state stays
+        # replicated), and records no span of its own
         self.obs = obs
-        self.hist = obs is not None and obs.histograms
         self._rec = obs.spans if obs is not None else NULL_RECORDER
         self._sid = {name: self._rec.name(f"segment.{name}")
                      for name in ("stage", "dispatch", "block", "retire")}
-        # flight recorder: host-side provenance hooks on the gathered
-        # retiring columns, on every rank (its state stays replicated)
         self._flight = getattr(obs, "flight", None)
+        self.retirer = Retirer(scn, cw, self.st, self.horizon, self.collect,
+                               group, lambda a: _put(a, dev), obs)
 
         if scan == "on":
             self.stager = _SegmentStager(cw, seg_len, rounds, group, n_loc,
@@ -426,27 +405,13 @@ class ShardedStepper:
         out = {key: self._gather_host(self.st[key]) for key in STATE_KEYS}
         return out if self.group.rank == 0 else None
 
-    def _column_origins(self) -> np.ndarray:
-        """Per-column broadcast origin (app columns; -1 elsewhere), so
-        the owner rank can answer ``bcast_done``."""
-        cw = self.cw
-        origins = np.full(self.w, -1, np.int32)
-        app = cw.slot_app & (cw.slot_msg >= 0)
-        if app.any():
-            origins[app] = cw.bc_origin[cw.slot_msg[app]]
-        return origins
-
-    def _partials(self) -> torch.Tensor:
-        return column_partials(self.st, _put(self._column_origins(),
-                                             self.group.device),
-                               self.rounds, self.group)
-
     # ----------------------------------------------------------- segment
     def _run_segment(self, lo: int, hi: int):
         """Run segment ``[lo, hi)``; returns its device stats rows
         (local) and, on ``scan="on"`` with live columns, the summed
         retirement aggregates of the segment's end."""
         cw, group, rec, sid = self.cw, self.group, self._rec, self._sid
+        self.retirer.stale()
         t0 = self._clock()
         rec.begin(sid["stage"])
         fast = False
@@ -482,7 +447,7 @@ class ShardedStepper:
         if self.scan == "on" and (cw.slot_msg >= 0).any():
             # the retirement aggregates of the segment's end, enqueued
             # with the segment itself
-            red = self._partials()
+            red = self.retirer.partials()
         rec.end()
         if self.scan == "on":
             self._apply_topo_events(lo, hi)
@@ -491,106 +456,6 @@ class ShardedStepper:
                                          stage_s=t1 - t0,
                                          dispatch_s=self._clock() - t1))
         return seg, red
-
-    # -------------------------------------------------------- retirement
-    def _record_and_free(self, cols: np.ndarray, by_expiry: np.ndarray,
-                         red, hung: np.ndarray,
-                         t_now: Optional[int] = None) -> None:
-        """Fold retired columns into the host aggregates and recycle
-        them on the device."""
-        if not len(cols):
-            return
-        cw, group, dev = self.cw, self.group, self.group.device
-        cnt, arrcnt, sumdel, bdone = red["cnt"], red["arrcnt"], \
-            red["sumdel"], red["bdone"]
-        ids = cw.slot_msg[cols]
-        self.deliv_count[ids] = cnt[cols]
-        self.deliv_round_sum[ids] = sumdel[cols]
-        self.expired[ids] |= by_expiry
-        self.first_receipts += int(arrcnt[cols].sum())
-        app = cw.slot_app[cols]
-        delivered = self.st["delivered"]
-        cols_t = _put(cols.astype(np.int64), dev)
-        if self.collect == "full":
-            full = group.gather_rows(delivered.index_select(1, cols_t))
-            if full is not None:
-                self.delivered_full[:, ids] = host(full)[: self.scn.n]
-        acols_t = None
-        if app.any():
-            acols, aidx = cols[app], ids[app]
-            births = cw.slot_birth[acols].astype(np.int64)
-            self.lat_sum += int((sumdel[acols] - cnt[acols] * births).sum())
-            self.lat_cnt += int(cnt[acols].sum())
-            self.bcast_done[aidx] = bdone[acols] > 0
-            self.app_sweeps += 1
-            acols_t = _put(acols.astype(np.int64), dev)
-            if self.hist:
-                # the base is the column's birth round (batch) or the
-                # live loop's submission round
-                lb = self.obs.latency_base
-                base = (lb[aidx] if lb is not None
-                        else cw.slot_birth[acols]).astype(np.int32)
-                h = latency_hist_sum(delivered,
-                                     torch.from_numpy(acols.astype(np.int64)),
-                                     _put(base, dev), group)
-                self.obs.add_hist(host(h))
-            fl = self._flight
-            if fl is not None and fl.open_count:
-                # sampled provenance: the retiring sampled columns of
-                # every row, before the reset
-                m = fl.sampled_mask(aidx)
-                if m.any():
-                    sel = _put(acols[m].astype(np.int64), dev)
-                    rows = host(group.gather_rows(
-                        delivered.index_select(1, sel), everywhere=True))
-                    fl.on_retire(aidx[m], rows[: self.scn.n],
-                                 self.t if t_now is None else t_now,
-                                 by_expiry[app][m])
-        retire_apply(self.st, cols_t, acols_t,
-                     _put(hung, dev) if hung.any() else None)
-        cw.free_cols(cols)
-
-    def _retire(self, t_now: int, red_dev=None) -> int:
-        """Retire columns from the summed aggregates of the segment's
-        end (``scan="on"``) or of a reduction run now."""
-        cw, w = self.cw, self.w
-        live = cw.slot_msg >= 0
-        if not live.any():
-            return 0
-        if red_dev is None:
-            red_dev = self._partials()
-        red = self._split(host(red_dev))
-        self.sweeps += 1
-        full_del = red["alivedel"] == red["alive"]
-        blocked = (red["blocked"] > 0) & cw.slot_app
-        ref = red["ref"] > 0
-        dead = (red["cnt"] == 0) & (cw.slot_birth < t_now)
-        done = live & ~ref & ((full_del & ~blocked) | dead)
-        by_exp = np.zeros(w, bool)
-        hung = np.zeros(w, bool)
-        if self.horizon is not None:
-            by_exp = live & ~done & (t_now - cw.slot_birth > self.horizon)
-            hung = by_exp & ref
-            done |= by_exp
-        fl = self._flight
-        if fl is not None and fl.open_count:
-            blk = np.nonzero(live & blocked & ~done)[0]
-            if len(blk):
-                bids = cw.slot_msg[blk]
-                m = fl.sampled_mask(bids)
-                if m.any():
-                    fl.on_blocked(bids[m], t_now)
-        cols = np.nonzero(done)[0]
-        self._record_and_free(cols, by_exp[cols], red, hung, t_now)
-        return len(cols)
-
-    def _split(self, flat: np.ndarray) -> Dict[str, np.ndarray]:
-        w = self.w
-        names = ("cnt", "arrcnt", "sumdel", "alivedel", "blocked", "ref",
-                 "bdone")
-        out = {name: flat[i * w:(i + 1) * w] for i, name in enumerate(names)}
-        out["alive"] = int(flat[-1])
-        return out
 
     # --------------------------------------------------------------- loop
     def advance(self) -> int:
@@ -632,7 +497,7 @@ class ShardedStepper:
         self._rec.end()
         t1 = self._clock()
         self._rec.begin(self._sid["retire"])
-        self._retire(t_end, red_dev)
+        self.retirer.sweep(t_end, red_dev)
         self._rec.end()
         if self.seg_profile is not None:
             self.seg_profile[-1]["block_s"] = t1 - t0
@@ -651,25 +516,16 @@ class ShardedStepper:
         """Drain still-live columns and build the result: whatever is
         still live keeps its end-of-run values, as in the windowed
         engine at ``t == rounds``."""
-        live_cols = self.cw.live_cols()
-        if len(live_cols):
-            red = self._split(host(self._partials()))
-            self._record_and_free(live_cols,
-                                  np.zeros(len(live_cols), bool), red,
-                                  np.zeros(self.w, bool))
+        self.retirer.drain(self.t)
         if self.obs is not None and self.scan == "on":
             self.obs.count("stager_uploads", self.stager.uploads)
             self.obs.count("stager_skips", self.stager.skips)
-        stats = stats_from_series(self.series, self.first_receipts)
+        stats = stats_from_series(self.series, self.retirer.first_receipts)
         return ShardedRunResult(
             scenario=self.scn, window=self.w, device=str(self.group.device),
-            stats=stats, series=self.series, delivered=self.delivered_full,
-            deliv_count=self.deliv_count, bcast_done=self.bcast_done,
-            expired=self.expired, state=self.host_state(),
+            stats=stats, series=self.series, state=self.host_state(),
             snapshot=self.snapshot, peak_live=self.cw.peak_live,
-            lat_sum=self.lat_sum, lat_cnt=self.lat_cnt,
-            deliv_round_sum=self.deliv_round_sum, segments=self.segments,
-            sweeps=self.sweeps, app_sweeps=self.app_sweeps,
+            segments=self.segments, **self.retirer.result_fields(),
             n_devices=self.d, scan=self.scan,
             fast_segments=self.fast_segments,
             generic_segments=self.generic_segments,

@@ -19,8 +19,9 @@ every rank.  Per round three things cross ranks (the JAX package's
     a gated link's remote target; the ``(n_loc, K)`` query triples
     (target, ping column, answer) ride the ring and come home after
     ``world`` hops with the answer filled in by the target's owner;
-  * **sums** — the per-round stats rows and the per-column retirement
-    aggregates are summed over the ranks once per segment.
+  * **sums** — the per-round stats rows are summed over the ranks once
+    per segment, as are the per-column retirement aggregates
+    (``retire.py``).
 
 Schedule events are owner-local: the driver hands each rank only the
 events of its rows, already in local row indices, so phases 1-4 are the
@@ -50,7 +51,7 @@ Both write one stats row a round into a device tensor the driver reads
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -60,8 +61,7 @@ from ..sim import apply_events
 from .mesh import ShardGroup
 
 __all__ = ["INT16_LIMIT", "resolve_scan", "generic_span", "fast_span",
-           "fast_positions", "column_partials", "retire_apply",
-           "latency_hist_sum"]
+           "fast_positions"]
 
 # int16 ceiling of the fast body: arrival rounds live in int16 planes
 # there, with this value standing in for INF.  The driver selects the
@@ -275,67 +275,3 @@ def fast_span(st: Dict[str, torch.Tensor], sched, t0: int, t1: int,
     arr16 = fold(arr16, pend, tprev)
     arr.copy_(torch.where(arr16 >= INT16_LIMIT, _INF, arr16.to(torch.int32)))
     delivered.copy_(del16)
-
-
-def column_partials(st: Dict[str, torch.Tensor], origins: torch.Tensor,
-                    rounds: int, group: ShardGroup) -> torch.Tensor:
-    """The per-column retirement aggregates, summed over the ranks: one
-    int64 device tensor ``[cnt, arrcnt, sumdel, alivedel, blocked, ref,
-    bdone]`` (``W`` each) followed by ``alive``.  The five plane
-    reductions come from the ``retire_reduce`` kernel on the local
-    rows; ``ref`` (live pings referencing the column), ``bdone`` (the
-    owner rank's origin delivered it) and ``alive`` are small tensor
-    operations.  ``origins`` is the per-column broadcast origin (int32
-    ``(W,)``, -1 for ping and free columns)."""
-    arr, delivered, crashed = st["arr"], st["delivered"], st["crashed"]
-    gate, ping = st["gate"], st["ping"]
-    n_loc, w = arr.shape
-    gated = (gate >= 0) & st["active"] & ~crashed[:, None]
-    min_gate = torch.where(gated, gate, _INF).min(dim=1).values
-    cnt, alivedel, blocked, arrcnt, sumdel = kx.retire_reduce(
-        arr, delivered, crashed, min_gate, rounds)
-    pidx = torch.where((ping >= 0) & ~crashed[:, None], ping, w).reshape(-1)
-    ref = torch.zeros(w + 1, dtype=torch.int64, device=arr.device)
-    ref.scatter_add_(0, pidx.long(), torch.ones_like(pidx, dtype=torch.int64))
-    ol = origins.long() - group.off
-    owned = (ol >= 0) & (ol < n_loc) & (origins >= 0)
-    row = delivered[ol.clamp(0, n_loc - 1),
-                    torch.arange(w, device=arr.device)]
-    bdone = owned & (row >= 0)
-    alive = (~crashed).sum().view(1)
-    out = torch.cat([x.to(torch.int64) for x in (
-        cnt, arrcnt, sumdel, alivedel, blocked, ref[:w], bdone, alive)])
-    return group.all_reduce_sum(out)
-
-
-def retire_apply(st: Dict[str, torch.Tensor], cols: torch.Tensor,
-                 app_cols: Optional[torch.Tensor],
-                 hung: Optional[torch.Tensor]) -> None:
-    """Recycle the retiring columns ``cols`` in place: fold the app
-    deliveries of ``app_cols`` into ``ever_del`` first, clear the gates
-    whose ping column is force-expired (``hung``, a ``(W,)`` mask, or
-    None when there is none), then reset the columns."""
-    delivered = st["delivered"]
-    if app_cols is not None:
-        st["ever_del"] |= (delivered.index_select(1, app_cols) >= 0).any(
-            dim=1)
-    if hung is not None:
-        ping = st["ping"]
-        w = delivered.shape[1]
-        sel = (ping >= 0) & hung[ping.clamp(0, w - 1).long()]
-        st["gate"].masked_fill_(sel, -1)
-        st["flush"].masked_fill_(sel, _INF)
-        ping.masked_fill_(sel, -1)
-    st["arr"].index_fill_(1, cols, _INF)
-    delivered.index_fill_(1, cols, -1)
-
-
-def latency_hist_sum(delivered: torch.Tensor, cols, base: torch.Tensor,
-                     group: ShardGroup) -> torch.Tensor:
-    """The ``(32,)`` int64 latency histogram of the columns ``cols``
-    (int64 on the host) against the per-column ``base``: the
-    ``latency_hist`` kernel on the local rows, summed over the
-    columns and the ranks."""
-    h = kx.latency_hist(base, delivered, cols)
-    return group.all_reduce_sum(h.sum(dim=0, dtype=torch.int64))
-

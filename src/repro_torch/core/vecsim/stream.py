@@ -12,39 +12,22 @@ of ``W`` live *columns* instead, exactly as the JAX package's
     (:class:`ColumnWindow`, host bookkeeping);
   * rounds advance segment by segment through the *same* span runner as
     the monolithic engine (``sim.run_span``);
-  * between segments, columns are **retired**: their per-message results
-    fold into aggregates and the column is recycled.
-
-Retirement is exact — a column leaves the buffer only when nothing in
-the monolithic run could still touch it:
-
-  1. every non-crashed process has delivered it, AND no pending gated
-     link could still flush it (some process delivered it at or after
-     the link's gate round), for app columns;
-  2. ping columns additionally stay while any live ``ping[p, k]`` slot
-     references them (pong detection reads their delivery row);
-  3. columns that can never become live (their broadcast was skipped by
-     a crashed origin, or their link addition did not gate) retire as
-     soon as their round has passed.
-
-An optional ``horizon`` force-retires columns older than ``horizon``
-rounds, at the (flagged, in ``expired``) cost of dropping whatever late
-activity the column still had.
+  * between segments, columns are **retired** exactly, by the rule and
+    fold that the sharded engine shares (``retire.py``): their
+    per-message results fold into aggregates and the column is recycled.
 
 The ``arr``/``delivered`` planes never leave the device.  Per segment
-the host reads the segment's stats rows, the ``(N, K)`` gate tables, and
-the five ``(W,)`` column reductions of the ``retire_reduce`` kernel;
-retiring columns are recorded from those reductions and reset on the
-device, and only with ``collect="full"`` is their ``delivered`` slice
-copied to the host.  At the finish, once the drain has reset every
-column, the planes are checked on the device to hold only their reset
-values and reach the host as read-only constants, never copied.
+the host reads the segment's stats rows and one flat vector of
+per-column aggregates reduced on the card; retiring columns are
+recorded from it and reset on the device, and only with
+``collect="full"`` is their ``delivered`` slice copied to the host.  At
+the finish, once the drain has reset every column, the planes are
+checked on the device to hold only their reset values and reach the
+host as read-only constants, never copied.
 
 Telemetry (``repro_torch.obs``, threaded in as ``obs=``) hooks in where
-the JAX stepper hooks it: the latency histogram of the retiring app
-columns is folded by the ``latency_hist`` kernel straight from the live
-plane (only its 32 bucket sums reach the host), the flight recorder gets
-an ``index_select`` of only the *sampled* retiring columns, and spans
+the JAX stepper hooks it: the retirement folds the latency histogram
+and the flight recorder's sampled columns (``retire.py``), and spans
 name every phase of the set-up, each segment and the finish, down to
 each blocking copy between host and card (the tree is in
 ``obs/spans.py``).  On the card ``segment.dispatch`` ends with the read
@@ -55,7 +38,7 @@ of the segment's stats, ``segment.wait``, which waits for its rounds;
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -63,7 +46,7 @@ import torch
 from ...backend import resolve_device
 from ...obs.spans import NULL_RECORDER
 from ..types import NetStats
-from . import kernels as kx
+from .retire import OneDevice, Retirer, resolve_collect
 from .scenario import INF, VecScenario
 from .sim import (SERIES_FIELDS, STATE_KEYS, DeviceSchedule, SlotSchedule,
                   host, init_device_state, run_span, state_to_host,
@@ -343,15 +326,12 @@ class WindowedStepper:
                  cw: Optional[ColumnWindow] = None, obs=None):
         self.device = dev = resolve_device(device)
         self.obs = obs
-        self.hist = obs is not None and obs.histograms
         self._rec = rec = obs.spans if obs is not None else NULL_RECORDER
         self._sid = {name: rec.name(name) for name in (
             "engine.setup", "engine.finish", "segment.activate",
             "segment.dispatch", "segment.upload", "segment.enqueue",
             "segment.wait", "segment.snapshot", "segment.retire",
-            "retire.tables", "retire.reduce", "retire.gates", "retire.fold",
-            "segment.activated", "segment.retired", "segment.blocked",
-            "copy.h2d")}
+            "segment.activated", "segment.retired", "segment.blocked")}
         # flight recorder: host-side provenance hooks, None when off
         self._flight = getattr(obs, "flight", None)
         self.w = w = int(window)
@@ -371,37 +351,20 @@ class WindowedStepper:
             scn, w, horizon=horizon)
         # the id space is the window's (the live subclass reserves
         # capacity beyond the scenario's pre-scripted broadcasts)
-        self.m_app = self.cw.m_app_cap
-        self.m_total = self.m_app + scn.n_adds
-        n = scn.n
-        if collect == "auto":
-            collect = ("full" if n * max(self.m_total, 1) <= (1 << 26)
-                       else "aggregate")
-        if collect not in ("full", "aggregate"):
-            raise ValueError(f"unknown collect mode {collect!r}")
-        self.collect = collect
+        self.collect = resolve_collect(collect, scn.n,
+                                       self.cw.m_app_cap + scn.n_adds)
 
         rec.begin(self._sid["engine.setup"])
         self.st = init_device_state(scn, w, dev, rec)
         self._seg_series = torch.zeros((seg_len, len(SERIES_FIELDS)),
                                        dtype=torch.int64, device=dev)
         self.series = np.zeros((self.rounds, len(SERIES_FIELDS)), np.int64)
-        self.delivered_full = (np.full((n, self.m_total), -1, np.int32)
-                               if collect == "full" else None)
-        self.deliv_count = np.zeros(self.m_total, np.int64)
-        self.deliv_round_sum = np.zeros(self.m_total, np.int64)
-        self.bcast_done = np.zeros(self.m_app, bool)
-        self.expired = np.zeros(self.m_total, bool)
-        self.first_receipts = 0
-        self.lat_sum = 0
-        self.lat_cnt = 0
+        self.retirer = Retirer(
+            scn, self.cw, self.st, self.horizon, self.collect,
+            OneDevice(), lambda a: to_device(a, dev, rec), obs, rec)
         self.snapshot: Optional[Dict[str, np.ndarray]] = None
         self.t = 0
         self.segments = 0
-        self.sweeps = 0
-        self.app_sweeps = 0
-        # the last retire_reduce columns, valid until the next span runs
-        self._red: Optional[Tuple[np.ndarray, ...]] = None
         rec.end()
 
     @property
@@ -422,147 +385,7 @@ class WindowedStepper:
         rec.begin(sid["segment.wait"])
         self.series[lo:hi] = host(seg, rec)
         rec.end()
-        self._red = None
-
-    def _reduce(self, gate, active, crashed):
-        """The ``retire_reduce`` columns over the live planes, on the
-        host: ``(cnt, alivedel, blocked, arrcnt, sumdel)`` as int64."""
-        gated = (gate >= 0) & active & ~crashed[:, None]
-        min_gate = np.where(gated, gate, INF).min(axis=1).astype(np.int32)
-        rec = self._rec
-        red = kx.retire_reduce(self.st["arr"], self.st["delivered"],
-                               self.st["crashed"],
-                               to_device(min_gate, self.device, rec),
-                               self.rounds)
-        return tuple(host(x, rec).astype(np.int64) for x in red)
-
-    def _tables(self):
-        return tuple(host(self.st[key], self._rec)
-                     for key in ("gate", "ping", "flush", "active",
-                                 "crashed"))
-
-    def _record_and_free(self, cols: np.ndarray, by_expiry: np.ndarray,
-                         red, t_now: Optional[int] = None) -> None:
-        """Fold retired columns into the aggregates from the
-        ``retire_reduce`` columns ``red = (cnt, arrcnt, sumdel)``, feed
-        the telemetry, and recycle them (reset on the device)."""
-        if not len(cols):
-            return
-        st, cw, dev, rec = self.st, self.cw, self.device, self._rec
-        ids = cw.slot_msg[cols]
-        app = cw.slot_app[cols]
-        cnt, arrcnt, sumdel = red
-        self.deliv_count[ids] = cnt[cols]
-        self.deliv_round_sum[ids] = sumdel[cols]
-        self.first_receipts += int(arrcnt[cols].sum())
-        delivered = st["delivered"]
-        if app.any():
-            acols, aidx = cols[app], ids[app]
-            births = cw.slot_birth[acols].astype(np.int64)
-            self.lat_sum += int((sumdel[acols] - cnt[acols] * births).sum())
-            self.lat_cnt += int(cnt[acols].sum())
-            self.app_sweeps += 1
-            acols_t = to_device(acols, dev, rec)
-            if self.hist:
-                # latency histogram fold, once per column at retirement,
-                # from the live plane: the base is the column's birth
-                # round (batch) or the live loop's submission round
-                lb = self.obs.latency_base
-                base = (lb[aidx] if lb is not None
-                        else cw.slot_birth[acols]).astype(np.int32)
-                base_t = to_device(base, dev, rec)
-                # the wrapper copies the host column list to the card
-                rec.begin(self._sid["copy.h2d"])
-                h = kx.latency_hist(base_t, delivered,
-                                    torch.from_numpy(acols))
-                rec.end()
-                self.obs.add_hist(host(h.sum(dim=0, dtype=torch.int64),
-                                       rec))
-            fl = self._flight
-            if fl is not None and fl.open_count:
-                # sampled provenance: the per-receiver delivery rounds of
-                # the retiring *sampled* app columns, before the reset
-                m = fl.sampled_mask(aidx)
-                if m.any():
-                    sel = to_device(acols[m], dev, rec)
-                    fl.on_retire(aidx[m],
-                                 host(delivered.index_select(1, sel), rec),
-                                 self.t if t_now is None else t_now,
-                                 by_expiry[app][m])
-            st["ever_del"] |= (delivered.index_select(1, acols_t)
-                               >= 0).any(dim=1)
-            orig = to_device(cw.bc_origin[aidx].astype(np.int64), dev, rec)
-            self.bcast_done[aidx] = host(delivered[orig, acols_t] >= 0, rec)
-        self.expired[ids] |= by_expiry
-        cols_t = to_device(cols, dev, rec)
-        if self.delivered_full is not None:
-            self.delivered_full[:, ids] = host(
-                delivered.index_select(1, cols_t), rec)
-        st["arr"].index_fill_(1, cols_t, int(INF))
-        delivered.index_fill_(1, cols_t, -1)
-        cw.slot_msg[cols] = -1
-
-    def _retire(self, t_now: int) -> Tuple[int, int]:
-        """Retire every column the monolithic run could no longer touch
-        (plus horizon expiries); returns how many were freed and, when
-        tracing, the live app columns that only a pending gate keeps."""
-        cw, w, rec, sid = self.cw, self.w, self._rec, self._sid
-        slot_msg, slot_birth, slot_app = (cw.slot_msg, cw.slot_birth,
-                                          cw.slot_app)
-        live = slot_msg >= 0
-        if not live.any():
-            return 0, 0
-        rec.begin(sid["retire.tables"])
-        gate, ping, flush, active, crashed = self._tables()
-        rec.end()
-        alive = ~crashed
-        rec.begin(sid["retire.reduce"])
-        cnt, alivedel, blockcnt, arrcnt, sumdel = self._reduce(
-            gate, active, crashed)
-        rec.end()
-        self.sweeps += 1
-        self._red = (cnt, arrcnt, sumdel)
-        full_del = alivedel == int(alive.sum())
-        rec.begin(sid["retire.gates"])
-        blocked = (blockcnt > 0) & slot_app
-        ref = np.zeros(w, bool)
-        ref[ping[(ping >= 0) & ~crashed[:, None]]] = True
-        dead = (cnt == 0) & (slot_birth < t_now)
-        done = live & ~ref & ((full_del & ~blocked) | dead)
-        by_exp = np.zeros(w, bool)
-        if self.horizon is not None:
-            by_exp = live & ~done & (t_now - slot_birth > self.horizon)
-            hung = by_exp & ref
-            if hung.any():
-                # a gate whose ping column is being force-expired can
-                # never resolve: clear it so the link goes safe and the
-                # slot stops pinning the column — the buffered messages
-                # it would have flushed are dropped, the documented
-                # price of the horizon.
-                sel = (ping >= 0) & hung[np.clip(ping, 0, w - 1)]
-                gate[sel], flush[sel], ping[sel] = -1, INF, -1
-                for key, val in (("gate", gate), ("flush", flush),
-                                 ("ping", ping)):
-                    rec.begin(sid["copy.h2d"])
-                    self.st[key].copy_(torch.from_numpy(val))
-                    rec.end()
-            done |= by_exp
-        held = (int((live & full_del & blocked & ~done).sum())
-                if rec.enabled else 0)
-        rec.end()
-        fl = self._flight
-        if fl is not None and fl.open_count:
-            blk = np.nonzero(live & blocked & ~done)[0]
-            if len(blk):
-                bids = slot_msg[blk]
-                m = fl.sampled_mask(bids)
-                if m.any():
-                    fl.on_blocked(bids[m], t_now)
-        cols = np.nonzero(done)[0]
-        rec.begin(sid["retire.fold"])
-        self._record_and_free(cols, by_exp[cols], self._red, t_now)
-        rec.end()
-        return len(cols), held
+        self.retirer.stale()
 
     def advance(self) -> int:
         """Run one segment (activate -> span -> retire); returns the new
@@ -603,7 +426,7 @@ class WindowedStepper:
             self.snapshot["is_app"] = cw.slot_app.copy()
             self.snapshot["slot_msg"] = cw.slot_msg.copy()
         rec.begin(sid["segment.retire"])
-        freed, held = self._retire(t_end)
+        freed, held = self.retirer.sweep(t_end)
         rec.counter(sid["segment.retired"], freed)
         rec.counter(sid["segment.blocked"], held)
         rec.end()
@@ -651,30 +474,17 @@ class WindowedStepper:
         and ``(N,)`` tables are read back."""
         rec = self._rec
         rec.begin(self._sid["engine.finish"])
-        live_cols = np.nonzero(self.cw.slot_msg >= 0)[0]
-        if len(live_cols):
-            red = self._red
-            if red is None:
-                gate, _, _, active, crashed = self._tables()
-                cnt, _, _, arrcnt, sumdel = self._reduce(gate, active,
-                                                         crashed)
-                red = (cnt, arrcnt, sumdel)
-            self._record_and_free(live_cols, np.zeros(len(live_cols), bool),
-                                  red)
-        stats = stats_from_series(self.series, self.first_receipts)
+        self.retirer.drain(self.t)
+        stats = stats_from_series(self.series, self.retirer.first_receipts)
         planes = self._drained_planes()
         state = {key: planes[key] if key in planes
                  else host(self.st[key], rec) for key in STATE_KEYS}
         rec.end()
         return WindowedRunResult(
             scenario=self.scn, window=self.w, device=str(self.device),
-            stats=stats, series=self.series, delivered=self.delivered_full,
-            deliv_count=self.deliv_count, bcast_done=self.bcast_done,
-            expired=self.expired, state=state,
+            stats=stats, series=self.series, state=state,
             snapshot=self.snapshot, peak_live=self.cw.peak_live,
-            lat_sum=self.lat_sum, lat_cnt=self.lat_cnt,
-            deliv_round_sum=self.deliv_round_sum, segments=self.segments,
-            sweeps=self.sweeps, app_sweeps=self.app_sweeps)
+            segments=self.segments, **self.retirer.result_fields())
 
 
 def execute_windowed(scn: VecScenario, window: int, device=None,

@@ -22,11 +22,12 @@ levels::
           segment.wait    the series read: the host waits for the rounds
         segment.snapshot  the state read at ``snapshot_round`` (if asked)
         segment.retire
-          retire.tables   the (N, K) tables read
-          retire.reduce   min_gate, retire_reduce, its five columns read
-          retire.gates    the ping-reference and blocked masks, and
-                          with a horizon the hung gates cleared
-          retire.fold     the retiring columns folded and reset
+          retire.reduce   the per-column aggregates on the card
+                          (core/vecsim/retire.py) and their one read
+          retire.gates    the decision on the host: done, horizon
+                          expiries, hung gates and the blocked count
+          retire.fold     the retiring columns folded and reset, with
+                          a horizon the hung gates cleared on the card
     loop.finish           LiveLoop._finalize
       engine.finish       the drain's fold, the drained planes' check on
                           the card and the (N, K) / (N,) tables' read

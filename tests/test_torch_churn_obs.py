@@ -6,7 +6,8 @@
   delivered at or after one of its open gates, worked out again from
   the engine's state after the segment;
 * ``retire.gates`` opens inside ``segment.retire``, once a retirement
-  sweep, and holds nothing but the hung gates' copies;
+  sweep, and holds no span: the decision reads nothing more from the
+  card, and the hung gates are cleared there;
 * with telemetry off (``NULL_RECORDER``) nothing is recorded and the
   results are byte-equal to a traced run's;
 * a run without link changes counts no blocked column.
@@ -106,8 +107,8 @@ def test_retire_gates_nests_in_segment_retire():
     stp, rec, _ = _stepped(scn, 256, 4, horizon=6)
     inside = [p for p, c in rec.edges if c == "retire.gates"]
     assert inside and set(inside) == {"segment.retire"}
-    assert len(inside) == stp.sweeps
-    assert {c for p, c in rec.edges if p == "retire.gates"} <= {"copy.h2d"}
+    assert len(inside) == stp.retirer.sweeps
+    assert not {c for p, c in rec.edges if p == "retire.gates"}
     assert rec.depth == 0 and rec.dropped == 0
 
 

@@ -269,8 +269,7 @@ def test_hist_metrics_and_provenance_identical_to_reference(
 
 _SEGMENT_SPANS = ("segment.activate", "segment.dispatch", "segment.upload",
                   "segment.enqueue", "segment.wait", "segment.retire")
-_SWEEP_SPANS = ("retire.tables", "retire.reduce", "retire.gates",
-                "retire.fold")
+_SWEEP_SPANS = ("retire.reduce", "retire.gates", "retire.fold")
 
 
 def _assert_unix_clock(spans, before, after):
@@ -347,11 +346,10 @@ def _documented_parents(kind):
         **{name: {"segment.dispatch"} for name in (
             "segment.upload", "segment.enqueue", "segment.wait")},
         **{name: {"segment.retire"} for name in _SWEEP_SPANS},
-        "copy.h2d": {"engine.setup", "segment.upload", "segment.retire",
-                     "retire.reduce", "retire.gates", "retire.fold",
-                     "engine.finish"},
-        "copy.d2h": {"segment.wait", "segment.snapshot", "retire.tables",
-                     "retire.reduce", "retire.fold", "engine.finish"},
+        "copy.h2d": {"engine.setup", "segment.upload", "retire.reduce",
+                     "retire.fold", "engine.finish"},
+        "copy.d2h": {"segment.wait", "segment.snapshot", "retire.reduce",
+                     "retire.fold", "engine.finish"},
     }
     if live:
         tree.update({"loop.setup": {None}, "loop.finish": {None},
@@ -482,10 +480,11 @@ def test_engine_setup_uploads_the_tables_and_no_plane(monkeypatch):
 @pytest.mark.parametrize("drain", [False, True])
 def test_engine_finish_reads_the_tables_and_no_plane(monkeypatch, drain):
     """The windowed engine's finish copies each (N, K) and (N,) table
-    once, the planes' four-value check and the drain's own reads (the
-    retiring columns' histogram and broadcast flags), and no (N, W)
-    plane: the drained planes stay on the device."""
-    from repro_torch.core.vecsim import stream
+    once, the planes' four-value check and the drain's own read (the
+    retiring columns' histogram; their broadcast flags come with the
+    last sweep's aggregates), and no (N, W) plane: the drained planes
+    stay on the device."""
+    from repro_torch.core.vecsim import retire, stream
     reads = []
     real = stream.host
 
@@ -495,6 +494,7 @@ def test_engine_finish_reads_the_tables_and_no_plane(monkeypatch, drain):
         return real(x, rec)
 
     monkeypatch.setattr(stream, "host", host)
+    monkeypatch.setattr(retire, "host", host)
     from repro_torch.core.vecsim.scenario import sustained_scenario
     scn = sustained_scenario(4, 48, k=4, rate=2.0, messages=60,
                              max_delay=2)
@@ -514,7 +514,7 @@ def test_engine_finish_reads_the_tables_and_no_plane(monkeypatch, drain):
     n_app = int((live & stp.cw.slot_app).sum())
     assert bool(n_app) == drain
     out = stp.finish()
-    drained = [(NB,), (n_app,)] if drain else []
+    drained = [(NB,)] if drain else []
     want = [(scn.n, scn.k)] * 6 + [(scn.n,)] * 2 + [(4,)] + drained
     assert sorted(reads) == sorted(want)
     assert obs.spans.count == len(want)
@@ -546,7 +546,7 @@ def _corrupted_run(mode):
                              max_delay=2)
     stp = WindowedStepper(scn, 32, device="cpu", seg_len=4,
                           collect="full", obs=obs)
-    orig = stp._retire
+    orig = stp.retirer.sweep
 
     def corrupt(t_now):
         delivered = stp.st["delivered"]
@@ -556,7 +556,7 @@ def _corrupted_run(mode):
                 delivered[got[0], c] = 0
         return orig(t_now)
 
-    stp._retire = corrupt
+    stp.retirer.sweep = corrupt
     while not stp.done:
         stp.advance()
     stp.finish()
